@@ -1,0 +1,623 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and hold its kernel
+against the plain PyTorch version.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; none is caught):
+
+1. build   — compile ``src/repro_torch/kernels/popstep/csrc`` with nvcc
+             for sm_90a and print the ptxas register/spill report;
+2. kernel  — ``population_step_ids`` through the CUDA kernels vs their
+             plain PyTorch version on the same CUDA tensors, for the nine
+             registry objectives at their registry encodings (the
+             remote-sensing MLP is the full 680-variable, 5,439-child
+             step) and for rastrigin n=9 at every resolution of the
+             second main path (8..16 bits, 143..287 children), with the
+             engine's virtual blocks and as one run;
+3. fold    — the fold launch vs the plain rule on partials of every
+             main-path step's shape and on crafted partials holding
+             NaNs, ties and all-+inf blocks;
+4. main    — ``solve(remote_sensing, Distributed(inner="popstep"))`` on
+             the device driver and ``solve(rastrigin n=9,
+             Distributed(driver="host", max_bits=16))``, each with both
+             kernels' launch counts set to 0 before and read after; then
+             the remote-sensing solve again with ``inner="fused"`` (plain
+             PyTorch on the card), whose history must match step for
+             step unless a step's two winners are a near-tie.
+
+The last lines are the card's name and power limit, a JSON line with the
+two kernels' measurements (``popstep`` — the partials launch — and
+``popstep_fold``), and ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the repository's ``src/repro_torch`` beside this
+file, it exits non-zero and prints no result.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+RTOL = ATOL = 1e-5          # the reference kernel's bar (tests/test_popstep.py)
+FP32_PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def time_ms(fn, reps: int, dev) -> float:
+    """Mean milliseconds per call after one warm-up: CUDA events on the
+    card (the wall of the stream, host work included when the host is the
+    slower side), the host clock elsewhere."""
+    import torch
+
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_activity(prof, name: str | None = None) -> tuple[float, int]:
+    """(microseconds, count) of the CUDA activities a profiler recorded
+    (kernels and copies; only kernels whose name contains ``name``, when
+    given)."""
+    from torch.autograd import DeviceType
+
+    times = [getattr(e, "self_device_time_total", 0)
+             for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and (name is None or name in e.name)]
+    return sum(times), len(times)
+
+
+def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
+    """Mean device milliseconds per call: the CUDA activity that
+    ``torch.profiler`` records over ``reps`` calls (only kernels whose
+    name contains ``name``, when given).  Fails when the profiler sees
+    no device time: no other clock stands in for it.  (Off the card, for
+    a rehearsal, the host clock.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return time_ms(fn, reps, dev)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, _ = _device_activity(prof, name)
+    check(us > 0, f"the profiler recorded no device time"
+                  f"{f' for {name!r}' if name else ''}")
+    return us / 1e3 / reps
+
+
+def long_sum_atol(name: str, enc) -> tuple[float, str]:
+    """Absolute tolerance for objectives whose value is a long float32 sum
+    taken in another order by the kernel: n terms x |largest term| x 2^-23,
+    with the reason."""
+    if name == "rastrigin":
+        big = max(abs(enc.lo), abs(enc.hi)) ** 2 + 10.0
+        n = enc.n_vars
+    elif name == "remote_sensing":   # logits: 42 terms h * w2 with |h| <= 1
+        big, n = max(abs(enc.lo), abs(enc.hi)), 42
+    else:
+        return ATOL, ""
+    atol = max(ATOL, 4 * n * big * 2.0**-23)
+    return atol, (f"atol widened to {atol:.3g}: a sum of {n} terms up to "
+                  f"{big:.3g} in another order (4 * n * term * 2^-23)")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: build
+# ---------------------------------------------------------------------------
+
+def phase_build() -> None:
+    from repro_torch.kernels.popstep import kernel
+
+    t0 = time.perf_counter()
+    path, log = kernel.build()
+    shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+    print(f"[build] {shown} in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"[build] {line.strip()}")
+    kernel.load()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernel vs plain
+# ---------------------------------------------------------------------------
+
+REGISTRY = ("quadratic", "rastrigin", "ackley", "griewank", "shekel",
+            "becker_lago", "sample2d", "xor", "remote_sensing")
+RAST_SCHEDULE = (8, 10, 12, 14, 16)     # the second main path's resolutions
+
+
+def _step_inputs(enc, dev):
+    """The engine's step inputs at its default virtual block of 256:
+    (clipped ids, valid mask, block)."""
+    import torch
+
+    from repro_torch.core.distributed import _shard_plan
+
+    plan = _shard_plan(enc.population, 1, 256)
+    ids = torch.arange(plan.n_blocks * plan.block, device=dev)
+    valid = ids < plan.pop
+    return ids.clamp(max=plan.pop - 1), valid, plan.block
+
+
+def compare_step(obj, enc, parent, dev, *, virtual_block):
+    """One step through the kernel and the plain version on the same
+    tensors; returns (kernel (val, id), plain (val, id), per-child plain
+    values)."""
+    from repro_torch.kernels.popstep import ops
+
+    ids, valid, block = _step_inputs(enc, dev)
+    vb = block if virtual_block else None
+    if not virtual_block:
+        ids = ids[: enc.population]
+        valid = valid[: enc.population]
+    kv, ki = ops.population_step_ids(obj, parent, ids, enc, valid=valid,
+                                     virtual_block=vb)
+    pv, pi = ops.population_step_ids_plain(obj, parent, ids, enc,
+                                           valid=valid, virtual_block=vb)
+    vals = ops.child_values_plain(obj, parent, ids, enc, valid)
+    return (float(kv), int(ki)), (float(pv), int(pi)), vals
+
+
+def time_step(obj, enc, parent, dev, reps: int = 20):
+    """(partials launch device ms, fold launch device ms, wrapper-call
+    ms, plain-version device ms) of one engine-shaped step (virtual
+    blocks of the engine's plan)."""
+    from repro_torch.kernels.popstep import ops
+
+    ids, valid, block = _step_inputs(enc, dev)
+    step = ops.prepare_step_ids(obj, ids, enc, valid=valid,
+                                virtual_block=block)
+    k_ms = device_ms(lambda: step(parent), reps, dev,
+                     name="popstep_partials")
+    f_ms = device_ms(lambda: step(parent), reps, dev, name="popstep_fold")
+    c_ms = time_ms(lambda: step(parent), reps, dev)
+    p_ms = device_ms(lambda: ops.population_step_ids_plain(
+        obj, parent, ids, enc, valid=valid, virtual_block=block), reps, dev)
+    return k_ms, f_ms, c_ms, p_ms
+
+
+def check_step(label, name, obj, enc, parent, dev) -> float:
+    """Kernel vs plain on one step, with the engine's virtual blocks and
+    as one run; returns the largest |error| of the step's value."""
+    atol, why = long_sum_atol(name, enc)
+    max_err = 0.0
+    for virtual in (True, False):
+        (kv, ki), (pv, pi), vals = compare_step(obj, enc, parent, dev,
+                                                virtual_block=virtual)
+        err = abs(kv - pv)
+        max_err = max(max_err, err)
+        check(np.isclose(kv, pv, rtol=RTOL, atol=atol),
+              f"{label}: kernel {kv!r} vs plain {pv!r} (atol {atol:.3g})")
+        if ki != pi:     # a near-tie: both winners within the bar
+            a, b = float(vals[ki]), float(vals[pi])
+            check(np.isclose(a, b, rtol=RTOL, atol=atol),
+                  f"{label}: kernel id {ki} ({a!r}) vs plain id {pi} "
+                  f"({b!r}) is not a near-tie")
+        mode = "virtual blocks" if virtual else "one run"
+        print(f"[kernel] {label:<22} pop {enc.population:>5} {mode:<14} "
+              f"kernel ({kv:.7g}, {ki}) plain ({pv:.7g}, {pi}) "
+              f"|err| {err:.3g}" + (f"  [{why}]" if why else ""))
+    return max_err
+
+
+def phase_kernel_vs_plain(dev) -> dict:
+    """Every registry objective at its registry encoding, then the second
+    main path's problem (rastrigin n=9) at every resolution of its
+    8 -> 16 bit schedule; times at remote_sensing and at rastrigin n=9,
+    16 bits."""
+    import torch
+
+    from repro_torch.core import objectives
+
+    rng = np.random.default_rng(0)
+    max_err = 0.0
+    rs = None
+    for name in REGISTRY:
+        obj = objectives.get(name)
+        enc = obj.encoding
+        parent = torch.as_tensor(
+            rng.integers(0, 2, enc.n_bits).astype(np.int8), device=dev)
+        max_err = max(max_err, check_step(name, name, obj, enc, parent, dev))
+        k_ms, f_ms, c_ms, p_ms = time_step(obj, enc, parent, dev)
+        print(f"[time] {name:<15} partials {k_ms:.4f} ms, fold {f_ms:.4f} "
+              f"ms (device), wrapper call {c_ms:.4f} ms (CUDA events), "
+              f"plain {p_ms:.4f} ms (device)")
+        if name == "remote_sensing":
+            ids, valid, _ = _step_inputs(enc, dev)
+            rs = dict(obj=obj, enc=enc, n_live=int(valid.sum()),
+                      n_rows=ids.shape[0], ms=k_ms, fold_in_step_ms=f_ms,
+                      plain_ms=p_ms)
+    rast = objectives.get("rastrigin", n=9)
+    for b in RAST_SCHEDULE:
+        enc_b = rast.encoding.with_bits(b)
+        parent = torch.as_tensor(
+            rng.integers(0, 2, enc_b.n_bits).astype(np.int8), device=dev)
+        max_err = max(max_err, check_step(f"rastrigin n=9 {b} bits",
+                                          "rastrigin", rast, enc_b, parent,
+                                          dev))
+    k_ms, f_ms, c_ms, p_ms = time_step(rast, enc_b, parent, dev)
+    print(f"[time] rastrigin n=9 16 bits (pop {enc_b.population}) partials "
+          f"{k_ms:.4f} ms, fold {f_ms:.4f} ms (device), wrapper call "
+          f"{c_ms:.4f} ms, plain {p_ms:.4f} ms (device)")
+    rs["rastrigin_ms"] = k_ms + f_ms
+    rs["max_abs_err"] = max_err
+    return rs
+
+
+def popstep_bound_ms(rs: dict) -> tuple[float, str]:
+    """Least time for one remote-sensing step: multiply-adds (2 FLOPs
+    each) over the float32 peak vs inputs and outputs over the memory
+    rate.  Transcendentals are not counted."""
+    from repro_torch.core.objectives import RS_CLASSES, RS_HIDDEN, RS_IN
+
+    enc = rs["enc"]
+    m = rs["obj"].kernel.consts[0].shape[0]
+    flops = rs["n_live"] * m * (RS_IN * RS_HIDDEN + RS_HIDDEN * RS_CLASSES) * 2
+    # parent bits, then starts/ends/ok/ids per row, the constants, and the
+    # (value, id) written out
+    nbytes = (enc.n_bits + rs["n_rows"] * 4 * 4
+              + sum(c.numel() * 4 for c in rs["obj"].kernel.consts) + 8)
+    t_ops = flops / FP32_PEAK_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[kernel] remote_sensing bound: {flops / 1e9:.4f} GFLOP -> "
+          f"{t_ops * 1e3:.2f} us; {nbytes} B -> {t_bytes * 1e3:.4f} us")
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: fold
+# ---------------------------------------------------------------------------
+
+def _same(kv, ki, rv, ri) -> bool:
+    """Identical (value with its sign, or both NaN) and the same id."""
+    kv, rv = float(kv), float(rv)
+    return ((np.isnan(kv) and np.isnan(rv))
+            or (kv == rv and np.signbit(kv) == np.signbit(rv))) \
+        and int(ki) == int(ri)
+
+
+def main_path_partials(rng, pop: int, dev):
+    """Partials of the shape one engine step of population ``pop`` gives
+    the fold launch (its virtual blocks of chunks of ``ops.CHUNK`` rows),
+    with values drawn so that ties and NaNs occur and one virtual block
+    is all NaN: (values, rows, ids, n_vblocks, sentinel)."""
+    import torch
+
+    from repro_torch.core.distributed import _shard_plan
+    from repro_torch.kernels.popstep import ops
+
+    plan = _shard_plan(pop, 1, 256)
+    cpv = -(-plan.block // ops.CHUNK)
+    vals = rng.integers(0, 40, (plan.n_blocks, cpv)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.01] = np.nan
+    vals[rng.random(vals.shape) < 0.05] = np.inf
+    if plan.n_blocks > 1:
+        vals[-1] = np.nan
+    first = (np.arange(plan.n_blocks)[:, None] * plan.block
+             + np.arange(cpv)[None, :] * ops.CHUNK)
+    last = np.minimum(first + ops.CHUNK,
+                      (np.arange(plan.n_blocks)[:, None] + 1) * plan.block)
+    rows = rng.integers(first, last).astype(np.int32)
+    ids = np.minimum(np.arange(plan.n_blocks * plan.block), pop - 1)
+    return (torch.as_tensor(vals.reshape(-1), device=dev),
+            torch.as_tensor(rows.reshape(-1), device=dev),
+            torch.as_tensor(ids, device=dev), plan.n_blocks, pop)
+
+
+def phase_fold(dev, rs_pop: int) -> dict:
+    """The fold launch vs the plain rule, on crafted partials and on
+    partials of every main-path step's shape; times it at the
+    remote-sensing shape."""
+    import torch
+
+    from repro_torch.kernels.popstep import ops
+
+    rng = np.random.default_rng(5)
+    shapes = [("remote_sensing", rs_pop)] + [
+        (f"rastrigin n=9 {b} bits", 2 * 9 * b - 1) for b in RAST_SCHEDULE]
+    max_err = 0.0
+    for label, pop in shapes:
+        for _ in range(3):
+            args = main_path_partials(rng, pop, dev)
+            kv, ki = ops.fold_partials(*args[:4], sentinel=args[4])
+            rv, ri = ops.fold_partials_plain(*args[:4], sentinel=args[4])
+            check(_same(kv, ki, rv, ri), f"fold {label}: kernel "
+                  f"({float(kv)}, {int(ki)}) vs plain ({float(rv)}, "
+                  f"{int(ri)})")
+            if np.isfinite(float(kv)):
+                max_err = max(max_err, abs(float(kv) - float(rv)))
+        print(f"[fold] {label:<20} {args[3]} virtual blocks x "
+              f"{args[0].shape[0] // args[3]} partials: "
+              f"({float(kv)}, {int(ki)}) == plain")
+    args = main_path_partials(rng, rs_pop, dev)
+    fold = dict(n_parts=args[0].shape[0], n_vblocks=args[3],
+                max_abs_err=max_err)
+    fold["ms"] = device_ms(lambda: ops.fold_partials(*args[:4],
+                                                     sentinel=args[4]),
+                           20, dev, name="popstep_fold")
+    fold["plain_ms"] = device_ms(lambda: ops.fold_partials_plain(
+        *args[:4], sentinel=args[4]), 20, dev)
+    print(f"[time] fold at the remote-sensing shape: kernel "
+          f"{fold['ms']:.4f} ms, plain {fold['plain_ms']:.4f} ms (device)")
+
+    nan, inf = float("nan"), float("inf")
+    ppv = 7
+    vals = np.array([
+        [3.0, 2.0, 5.0, 2.0, 9.0, 4.0, 6.0],            # tie inside a block
+        [1.0, nan, 0.5, nan, 2.0, 3.0, 7.0],            # NaNs hide the block
+        [2.0, 8.0, 2.0, 9.0, 2.0, 8.0, 8.0],            # ties with block 0
+        [inf] * ppv,                                    # all masked
+        [-0.0, 0.0, 1.0, 1.0, 0.5, 0.0, 4.0],            # signed zeros
+    ], np.float32)
+    n_vb = vals.shape[0]
+    rows = np.arange(n_vb * ppv, dtype=np.int32)[::-1].copy()
+    ids = np.random.default_rng(3).permutation(n_vb * ppv).astype(np.int32)
+    cases = [("five blocks", vals, n_vb), ("one block with NaN", vals[1:2], 1),
+             ("one block", vals[0:1], 1), ("all NaN blocks",
+                                           np.full((3, ppv), nan, np.float32), 3)]
+    for label, v, nb in cases:
+        pv = torch.as_tensor(v.reshape(-1), device=dev)
+        pr = torch.as_tensor(rows[: pv.shape[0]], device=dev)
+        t_ids = torch.as_tensor(ids, device=dev)
+        kv, ki = ops.fold_partials(pv, pr, t_ids, nb, sentinel=10_000)
+        rv, ri = ops.fold_partials_plain(pv, pr, t_ids, nb, sentinel=10_000)
+        check(_same(kv, ki, rv, ri), f"fold {label}: kernel ({float(kv)}, "
+              f"{int(ki)}) vs plain ({float(rv)}, {int(ri)})")
+        print(f"[fold] {label:<20} ({float(kv)}, {int(ki)}) == plain")
+    return fold
+
+
+def fold_bound_ms(fold: dict) -> tuple[float, str]:
+    """Least time for the fold at the remote-sensing shape: each partial
+    (value, row) read once, one id read per virtual block, (value, id)
+    written, over the memory rate vs one comparison per partial over the
+    float32 peak."""
+    nbytes = fold["n_parts"] * 8 + fold["n_vblocks"] * 4 + 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = fold["n_parts"] / FP32_PEAK_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def _winner_ids(step, pat, x0, enc, n_steps, obj, dev):
+    """Replay ``n_steps`` host steps and return each step's chosen child
+    id (None where the parent was kept) and value."""
+    import torch
+
+    from repro_torch.core.encoding import decode, encode
+
+    bits = encode(torch.as_tensor(x0, device=dev), enc)
+    val = obj.fn(decode(bits, enc)[None])[0]
+    out = []
+    for it in range(n_steps):
+        new_bits, new_val, improved = step(bits, val, None, it)
+        if bool(improved):
+            diff = torch.bitwise_xor(new_bits, bits)
+            cid = int(torch.nonzero((pat == diff).all(1))[0, 0])
+        else:
+            cid = None
+        out.append((cid, float(new_val)))
+        bits, val = new_bits, new_val
+    return out
+
+
+def histories_match(h_a, h_b, problem, x0, dev) -> str:
+    """'' if two histories agree within the bar step for step; else the
+    first differing step is replayed with both inners and accepted only
+    as a near-tie (both winners' values within the bar)."""
+    from repro_torch.core.distributed import make_distributed_step
+    from repro_torch.core.population import table_on
+
+    n = min(len(h_a), len(h_b))
+    close = np.isclose(h_a[:n], h_b[:n], rtol=RTOL, atol=ATOL)
+    if close.all() and len(h_a) == len(h_b):
+        return ""
+    t = int(np.argmin(close)) if not close.all() else n
+    obj, enc = problem.objective, problem.encoding
+    pat = table_on("patterns", enc.n_bits, dev)
+    runs = [_winner_ids(make_distributed_step(obj, enc, inner=inner,
+                                              device=dev), pat, x0, enc, t,
+                        obj, dev) for inner in ("popstep", "fused")]
+    for s, ((ia, va), (ib, vb)) in enumerate(zip(*runs), start=1):
+        if ia != ib:
+            check(np.isclose(va, vb, rtol=RTOL, atol=ATOL),
+                  f"histories diverge at step {s}: child {ia} ({va!r}) vs "
+                  f"child {ib} ({vb!r}) is not a near-tie")
+            return f"near-tie at step {s}: child {ia} ({va!r}) vs {ib} ({vb!r})"
+    fail(f"histories differ from step {t} without a differing winner")
+    return ""
+
+
+def _solve_timed(problem, strategy, x0, max_iters, dev):
+    import torch
+
+    from repro_torch.core.solver import solve
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    # on the card, the entry point's default device (None -> CUDA)
+    res = solve(problem, strategy, x0=x0, max_iters=max_iters,
+                device=None if on_card else dev)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def _counted_solve(problem, strategy, x0, max_iters, dev):
+    """A main-path solve with the kernels' launch counts set to 0 just
+    before it and read just after: (result, wall s, (partials launches,
+    fold launches))."""
+    from repro_torch.kernels.popstep import ops
+
+    ops.launches = ops.fold_launches = 0
+    res, wall = _solve_timed(problem, strategy, x0, max_iters, dev)
+    return res, wall, (ops.launches, ops.fold_launches)
+
+
+def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
+    from repro_torch.core.solver import Distributed, Problem
+
+    rs_prob = Problem.get("remote_sensing")
+    rast = Problem.get("rastrigin", n=9)
+    rng = np.random.default_rng(0)
+    x0_rs = rng.uniform(-4.0, 4.0, rs_prob.encoding.n_vars).astype(np.float32)
+    x0_ra = rng.uniform(-5.12, 5.12, rast.encoding.n_vars).astype(np.float32)
+
+    res_rs, wall_rs, n_rs = _counted_solve(
+        rs_prob, Distributed(inner="popstep"), x0_rs, 64, dev)
+    res_ra, wall_ra, n_ra = _counted_solve(
+        rast, Distributed(driver="host", max_bits=16), x0_ra, None, dev)
+
+    for label, res, wall, (n, n_fold), prob in (
+            ("remote_sensing popstep device", res_rs, wall_rs, n_rs,
+             rs_prob),
+            ("rastrigin n=9 host 8->16 bits", res_ra, wall_ra, n_ra,
+             rast)):
+        best = float(res.best_f)
+        print(f"[main] {label}: {res.iterations} iterations, best_f "
+              f"{best:.7g}, wall {wall:.3f} s, launches: partials {n}, "
+              f"fold {n_fold}; finite {res.extras['finite']}")
+        check(n > 0 and n_fold > 0,
+              f"{label}: a popstep kernel was never launched")
+        check(n == n_fold, f"{label}: {n} partials launches but {n_fold} "
+                           f"fold launches")
+        check(res.extras["finite"] and np.isfinite(best),
+              f"{label}: non-finite result")
+        check(res.trace.shape == (res.iterations + 1,),
+              f"{label}: trace shape {res.trace.shape}")
+        check(tuple(res.best_x.shape) == (prob.encoding.n_vars,)
+              and bool(res.best_x.isfinite().all()),
+              f"{label}: best_x {tuple(res.best_x.shape)}")
+    res_warm, wall_warm = _solve_timed(rs_prob, Distributed(inner="popstep"),
+                                       x0_rs, 64, dev)
+    check(res_warm.extras["history"] == res_rs.extras["history"],
+          "remote_sensing: a repeated solve gave another history")
+    print(f"[main] remote_sensing kernel time per step {rs_ms:.4f} ms "
+          f"(device, phase 2); solve wall per step "
+          f"{wall_rs / max(n_rs[0], 1) * 1e3:.3f} ms first run "
+          f"(first-use table builds included; per step launched), "
+          f"{wall_warm / max(n_rs[0], 1) * 1e3:.3f} ms repeated")
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res_prof, wall_prof = _solve_timed(
+                rs_prob, Distributed(inner="popstep"), x0_rs, 64, dev)
+        busy_us, n_acts = _device_activity(prof)
+        busy = busy_us / 1e6
+        print(f"[main] remote_sensing repeated under the profiler: wall "
+              f"{wall_prof:.4f} s, device busy {busy:.4f} s, idle share "
+              f"{1 - busy / wall_prof:.3f}, {n_acts} device activities "
+              f"({n_acts / max(res_prof.iterations, 1):.1f} per step)")
+    print(f"[main] rastrigin n=9 kernel time per step {rast_ms:.4f} ms at "
+          f"16 bits (device, phase 2; partials and fold); solve wall per "
+          f"step {wall_ra / max(n_ra[0], 1) * 1e3:.3f} ms")
+    check(res_ra.extras["schedule"] == (8, 10, 12, 14, 16),
+          f"rastrigin schedule {res_ra.extras['schedule']}")
+
+    res_fused, wall_f = _solve_timed(rs_prob, Distributed(inner="fused"),
+                                     x0_rs, 64, dev)
+    print(f"[main] remote_sensing fused device: {res_fused.iterations} "
+          f"iterations, best_f {float(res_fused.best_f):.7g}, wall "
+          f"{wall_f:.3f} s")
+    note = histories_match(np.asarray(res_rs.extras["history"]),
+                           np.asarray(res_fused.extras["history"]),
+                           rs_prob, x0_rs, dev)
+    print(f"[main] popstep vs fused histories: "
+          f"{note or 'match step for step'}")
+    return n_rs[0] + n_ra[0], n_rs[1] + n_ra[1]
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    check(bool(out), "nvidia-smi printed no card")
+    return out[0]
+
+
+def main() -> None:
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
+             f"repository")
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    phase_build()
+    rs = phase_kernel_vs_plain(dev)
+    bound_ms, bound_by = popstep_bound_ms(rs)
+    fold = phase_fold(dev, rs["enc"].population)
+    fold_bound, fold_by = fold_bound_ms(fold)
+    n_partials, n_fold = phase_main_path(dev, rs["ms"] + rs["fold_in_step_ms"],
+                                         rs["rastrigin_ms"])
+    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(card_line())
+    source = "src/repro_torch/kernels/popstep/csrc/popstep.cu"
+    # no single PyTorch call computes either function (library_ms null);
+    # popstep's plain_ms is the plain step, values and selection together
+    print(json.dumps({"kernels": [{
+        "name": "popstep", "route": "cuda", "source": source,
+        "replaces": "src/repro/kernels/popstep/kernel.py:172",
+        "launches": n_partials, "max_abs_err": rs["max_abs_err"],
+        "ms": rs["ms"], "plain_ms": rs["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": "popstep_fold", "route": "cuda", "source": source,
+        "replaces": "src/repro/kernels/popstep/kernel.py:110",
+        "launches": n_fold, "max_abs_err": fold["max_abs_err"],
+        "ms": fold["ms"], "plain_ms": fold["plain_ms"],
+        "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": None}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,50 @@
+"""DGO core of the PyTorch port.
+
+``__all__`` is the subset of ``repro.core.__all__`` that the port has so
+far (``tests/test_torch_imports.py`` checks that it stays a subset).
+"""
+from repro_torch.core import cache, objectives
+from repro_torch.core.dgo import DGOConfig
+from repro_torch.core.distributed import make_distributed_engine, make_distributed_step
+from repro_torch.core.encoding import (
+    Encoding, binary_to_gray, decode, encode, gray_to_binary)
+from repro_torch.core.population import (
+    generate_children, generate_population, population_size)
+from repro_torch.core.solver import (
+    Distributed,
+    NonFiniteResult,
+    Problem,
+    SolveResult,
+    Strategy,
+    result_is_finite,
+    solve,
+    strategy_names,
+)
+
+__all__ = [
+    # the solver facade
+    "Distributed",
+    "NonFiniteResult",
+    "Problem",
+    "SolveResult",
+    "Strategy",
+    "result_is_finite",
+    "solve",
+    "strategy_names",
+    # shared specs / subsystems
+    "DGOConfig",
+    "Encoding",
+    "cache",
+    "objectives",
+    # encoding / population primitives
+    "binary_to_gray",
+    "decode",
+    "encode",
+    "generate_children",
+    "generate_population",
+    "gray_to_binary",
+    "population_size",
+    # engine builders
+    "make_distributed_engine",
+    "make_distributed_step",
+]

@@ -1,0 +1,2 @@
+"""The fused DGO population step: generate, decode, evaluate and select
+every child of one parent in one CUDA launch pair (``csrc/popstep.cu``)."""

@@ -49,6 +49,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "timeout(seconds): per-test watchdog (pytest-timeout plugin)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one (decided in a fixture)")
 
 
 @pytest.fixture(scope="session")

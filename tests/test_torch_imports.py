@@ -1,0 +1,57 @@
+"""Import hygiene of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
+import neither ``jax`` nor anything of the JAX package ``repro``."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    return sorted(".".join(p.relative_to(ROOT / "src").with_suffix("")
+                           .parts).removesuffix(".__init__")
+                  for p in PKG.rglob("*.py"))
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_module_names()!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_source(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
+
+
+def test_core_all_is_a_subset_of_the_reference():
+    import repro.core
+    import repro_torch.core
+
+    assert set(repro_torch.core.__all__) <= set(repro.core.__all__)
+    for name in repro_torch.core.__all__:
+        assert hasattr(repro_torch.core, name), name
