@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold its kernel
-against the plain PyTorch version.
+"""Drive the PyTorch port's main paths on one CUDA card and hold every
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; none is caught):
 
-1. build   — compile ``src/repro_torch/kernels/popstep/csrc`` with nvcc
-             for sm_90a and print the ptxas register/spill report;
+1. build   — compile every kernel library of ``src/repro_torch/kernels``
+             (popstep, graycode, fixedpoint, popmin) with nvcc for
+             sm_90a, one nvcc each, all started together, and print the
+             ptxas register/spill report;
 2. kernel  — ``population_step_ids`` through the CUDA kernels vs their
              plain PyTorch version on the same CUDA tensors, for the nine
              registry objectives at their registry encodings (the
@@ -24,13 +26,30 @@ Phases (any failure exits non-zero; none is caught):
              kernels' launch counts set to 0 before and read after; then
              the remote-sensing solve again with ``inner="fused"`` (plain
              PyTorch on the card), whose history must match step for
-             step unless a step's two winners are a near-tie.
+             step unless a step's two winners are a near-tie;
+5. packed  — the packed-word kernels vs their plain versions, bitwise:
+             ``generate_population_packed`` (graycode) at N = 9..2,720,
+             ``decode_packed`` (fixedpoint) at 1..32 bits and at the
+             remote-sensing encoding, ``population_min`` (popmin, two
+             launches) at P = 17..2^20 with a late NaN and ties, the
+             shapes of the main path below among them; the popmin fold
+             alone on crafted partials; each timed at the
+             remote-sensing shape; then their main path: generate ->
+             decode -> objective -> ``population_min`` for a few DGO
+             steps at remote_sensing and at rastrigin n=9, 16 bits,
+             with the four launch counts set to 0 before and read
+             after; each step's words, points and (min, argmin) held
+             against the plain versions and oracles on the same inputs,
+             and its result against popstep's ``population_step_ids``
+             on the same parent (same id unless a near-tie).
 
-The last lines are the card's name and power limit, a JSON line with the
-two kernels' measurements (``popstep`` — the partials launch — and
-``popstep_fold``), and ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or without the repository's ``src/repro_torch`` beside this
-file, it exits non-zero and prints no result.  It imports nothing of JAX.
+The last lines are the card's name and power limit, a JSON line with
+every kernel's measurements (``popstep`` — the partials launch —,
+``popstep_fold``, ``graycode``, ``fixedpoint``, ``popmin`` — its
+partials launch — and ``popmin_fold``), and ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or without the repository's
+``src/repro_torch`` beside this file, it exits non-zero and prints no
+result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -141,17 +160,27 @@ def long_sum_atol(name: str, enc) -> tuple[float, str]:
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> None:
-    from repro_torch.kernels.popstep import kernel
+KERNEL_PACKAGES = ("popstep", "graycode", "fixedpoint", "popmin")
 
+
+def phase_build() -> None:
+    import importlib
+
+    from repro_torch.kernels._build import build_all
+
+    libs = [importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+            .LIBRARY for name in KERNEL_PACKAGES]
     t0 = time.perf_counter()
-    path, log = kernel.build()
-    shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
-    print(f"[build] {shown} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}")
-    kernel.load()
+    built = build_all(libs)
+    print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} "
+          f"s (one nvcc each, in parallel)")
+    for lib, (path, log) in zip(libs, built):
+        shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+        print(f"[build] {lib.name}: {shown}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[build] {line.strip()}")
+        lib.load()
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +599,406 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
     return n_rs[0] + n_ra[0], n_rs[1] + n_ra[1]
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the packed-word kernels
+# ---------------------------------------------------------------------------
+
+# the listed shapes, and the packed main path's own: N = 144, (9 vars,
+# 16 bits) and P = 287 (rastrigin n=9 at 16 bits), N = 2,720, (680, 4) and
+# P = 5,439 (remote_sensing)
+GRAY_NS = (9, 32, 63, 100, 128, 144, 257, 680, 2720)
+FIX_SHAPES = ((2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (9, 16), (5, 32))
+POPMIN_PS = (17, 125, 287, 1000, 4096, 5439, 10000, 2**20)
+POPMIN_FOLD_KS = (1, 6, 10, 1024)   # partials: P = 287, 5,439, 10,000, 2^20
+PACKED_STEPS = 4        # DGO steps of the packed main path per problem
+
+
+def _bits_on(rng, shape, dev):
+    import torch
+
+    return torch.as_tensor(rng.integers(0, 2, shape).astype(np.int8),
+                           device=dev)
+
+
+def _max_abs(a, b) -> float:
+    """Largest |a - b| over two equal-shaped tensors, as float64."""
+    return float((a.double() - b.double()).abs().max())
+
+
+def check_graycode(rng, dev) -> float:
+    """The graycode kernel vs its plain version and the unpacked oracle,
+    bitwise, at every N of ``GRAY_NS``."""
+    import torch
+
+    from repro_torch.core.population import table_on
+    from repro_torch.kernels.graycode import ops, ref
+
+    err = 0.0
+    for n in GRAY_NS:
+        parent = _bits_on(rng, n, dev)
+        got = ops.generate_population_packed(parent)
+        table = table_on("table", n, dev)
+        plain = ops.graycode_children_plain(parent, table[:, 0], table[:, 1])
+        oracle = ref.graycode_children_ref(
+            parent, torch.arange(2 * n - 1, device=dev), (n + 31) // 32)
+        check(got.shape == plain.shape and torch.equal(got, plain),
+              f"graycode N={n}: kernel differs from the plain version")
+        check(torch.equal(got, oracle), f"graycode N={n}: kernel differs "
+                                        f"from the unpacked oracle")
+        err = max(err, _max_abs(got, plain))
+        print(f"[packed] graycode   N={n:<5} {tuple(got.shape)} words == "
+              f"plain == oracle, bitwise")
+    return err
+
+
+def check_fixedpoint(rng, dev) -> float:
+    """The fixedpoint kernel vs its plain version and the unpacked
+    oracle, bitwise, at the shapes of ``FIX_SHAPES`` on [-3, 7] and at the
+    remote-sensing encoding."""
+    import torch
+
+    from repro_torch.core.encoding import Encoding, pack_bits
+    from repro_torch.kernels.fixedpoint import ops, ref
+
+    err = 0.0
+    encs = [Encoding(nv, b, -3.0, 7.0) for nv, b in FIX_SHAPES]
+    for enc in encs + [Encoding(680, 4, -4.0, 4.0)]:
+        words = pack_bits(_bits_on(rng, (enc.population, enc.n_bits), dev))
+        got = ops.decode_packed(words, enc)
+        plain = ops.decode_words_plain(words, enc)
+        oracle = ref.fixedpoint_decode_ref(words, enc)
+        for label, want in (("plain version", plain), ("oracle", oracle)):
+            check(got.shape == want.shape and torch.equal(
+                got.view(torch.int32), want.view(torch.int32)),
+                  f"fixedpoint {enc}: kernel differs from the {label}")
+        err = max(err, _max_abs(got, plain))
+        print(f"[packed] fixedpoint {enc.n_vars:>3} vars x {enc.bits:>2} "
+              f"bits on [{enc.lo:g}, {enc.hi:g}], {enc.population} rows "
+              f"== plain == oracle, bitwise")
+    return err
+
+
+def check_popmin(rng, dev) -> float:
+    """The popmin launches vs the plain version and the oracle, exactly,
+    at every P of ``POPMIN_PS``: random values, a NaN in a late tile (and
+    a smaller value before it), and ties."""
+    import torch
+
+    from repro_torch.kernels.popmin import ops, ref
+
+    err = 0.0
+    for p in POPMIN_PS:
+        vals = torch.as_tensor(rng.standard_normal(p).astype(np.float32),
+                               device=dev)
+        late_nan = vals.clone()
+        late_nan[[p - 2, p - 1] if p > 2 else [p - 1]] = float("nan")
+        late_nan[p // 3] = -10.0
+        ties = vals.clone()
+        ties[[p - 1, p // 2, p // 5]] = -10.0
+        for label, v in (("random", vals), ("late NaN", late_nan),
+                         ("ties", ties)):
+            for tile in (1024, 256):
+                kv, ki = ops.population_min(v, tile=tile)
+                pv, pi = ops.population_min_plain(v, tile)
+                rv, ri = ref.popmin_ref(v)
+                check(_same(kv, ki, pv, pi) and _same(kv, ki, rv, ri),
+                      f"popmin P={p} {label} tile {tile}: kernel "
+                      f"({float(kv)}, {int(ki)}) plain ({float(pv)}, "
+                      f"{int(pi)}) oracle ({float(rv)}, {int(ri)})")
+                if np.isfinite(float(kv)):
+                    err = max(err, abs(float(kv) - float(pv)))
+        print(f"[packed] popmin     P={p:<8} random, late NaN, ties; tiles "
+              f"1024 and 256: == plain == oracle")
+    return err
+
+
+def check_popmin_fold(rng, dev) -> float:
+    """The popmin fold launch on its own vs its plain rule
+    (``_plain.nan_first_rows`` on the same CUDA tensors) and vs the
+    oracle, exactly, on crafted partials with unordered indices: random,
+    NaNs, ties, a -0.0 beside a 0.0, all +inf; at the partial counts of
+    ``POPMIN_FOLD_KS``.  These launches are not counted."""
+    import torch
+
+    from repro_torch.kernels._plain import nan_first_rows
+    from repro_torch.kernels.popmin import ops, ref
+
+    err = 0.0
+    for k in POPMIN_FOLD_KS:
+        base = rng.integers(-20, 20, k).astype(np.float32)
+        rows = rng.permutation(4 * k)[:k].astype(np.int32)
+        nans, ties, zeros = base.copy(), base.copy(), np.abs(base) + 1.0
+        nans[[k - 1, k // 2]] = np.nan
+        ties[[k // 3, 0, k - 1]] = -50.0
+        zeros[[k - 1, 0]] = [-0.0, 0.0]
+        cases = (("random", base), ("NaNs", nans), ("ties", ties),
+                 ("-0.0 and 0.0", zeros),
+                 ("all +inf", np.full(k, np.inf, np.float32)))
+        order = np.argsort(rows)
+        for label, v in cases:
+            pv = torch.as_tensor(v, device=dev)
+            pr = torch.as_tensor(rows, device=dev)
+            kv, ki = ops.fold_partials(pv, pr)
+            wv, wi = nan_first_rows(pv[None], pr.long()[None])
+            j = int(ref.popmin_ref(torch.as_tensor(v[order]))[1])
+            check(_same(kv, ki, wv[0], wi[0])
+                  and _same(kv, ki, v[order][j], rows[order][j]),
+                  f"popmin fold K={k} {label}: kernel ({float(kv)}, "
+                  f"{int(ki)}) plain ({float(wv[0])}, {int(wi[0])}) oracle "
+                  f"({float(v[order][j])}, {int(rows[order][j])})")
+            if np.isfinite(float(kv)):
+                err = max(err, abs(float(kv) - float(wv[0])))
+        print(f"[packed] popmin fold K={k:<5} random, NaNs, ties, -0.0, "
+              f"+inf; unordered indices: == plain == oracle")
+    return err
+
+
+def time_packed(dev, rs_enc, rs_obj) -> dict:
+    """Device times (``torch.profiler``, mean of 20) of the three kernels
+    and their plain versions at the remote-sensing shape; popmin also at
+    P = 2^20, with ``torch.min(vals, dim=0)`` as its library call."""
+    import torch
+
+    from repro_torch.core.population import table_on
+    from repro_torch.kernels._plain import nan_first_rows
+    from repro_torch.kernels.fixedpoint import ops as fops
+    from repro_torch.kernels.graycode import ops as gops
+    from repro_torch.kernels.popmin import ops as mops
+
+    n = rs_enc.n_bits
+    parent = _bits_on(np.random.default_rng(9), n, dev)
+    table = table_on("table", n, dev)
+    words = gops.generate_population_packed(parent)
+    vals = rs_obj.fn(fops.decode_packed(words, rs_enc))
+    big = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        2**20).astype(np.float32), device=dev)
+    t = dict(n_bits=n, pop=rs_enc.population, n_words=words.shape[1],
+             n_vars=rs_enc.n_vars)
+    t["graycode"] = device_ms(lambda: gops.generate_population_packed(
+        parent), 20, dev, name="graycode_kernel")
+    t["graycode_plain"] = device_ms(lambda: gops.graycode_children_plain(
+        parent, table[:, 0], table[:, 1]), 20, dev)
+    t["fixedpoint"] = device_ms(lambda: fops.decode_packed(words, rs_enc),
+                                20, dev, name="fixedpoint_kernel")
+    t["fixedpoint_plain"] = device_ms(
+        lambda: fops.decode_words_plain(words, rs_enc), 20, dev)
+    for key, v in (("", vals), ("_big", big)):
+        t["popmin" + key] = device_ms(lambda: mops.population_min(v), 20,
+                                      dev, name="popmin_partials")
+        t["popmin_fold" + key] = device_ms(lambda: mops.population_min(v),
+                                           20, dev, name="popmin_fold")
+        t["popmin_plain" + key] = device_ms(
+            lambda: mops.population_min_plain(v), 20, dev)
+        t["popmin_library" + key] = device_ms(lambda: torch.min(v, dim=0),
+                                              20, dev)
+    t["popmin_parts"] = -(-t["pop"] // 1024)
+    t["popmin_parts_big"] = -(-2**20 // 1024)
+    fold_args = (torch.as_tensor(np.random.default_rng(11).standard_normal(
+        t["popmin_parts"]).astype(np.float32), device=dev),
+                 torch.arange(t["popmin_parts"], dtype=torch.int32,
+                              device=dev))
+    t["popmin_fold_plain"] = device_ms(lambda: nan_first_rows(
+        fold_args[0][None], fold_args[1].long()[None]), 20, dev)
+    print(f"[time] remote-sensing shape ({t['pop']} children x "
+          f"{t['n_words']} words, {t['n_vars']} vars): graycode "
+          f"{t['graycode']:.4f} ms (plain {t['graycode_plain']:.4f}); "
+          f"fixedpoint {t['fixedpoint']:.4f} ms (plain "
+          f"{t['fixedpoint_plain']:.4f}); popmin P={t['pop']} partials "
+          f"{t['popmin']:.4f} + fold {t['popmin_fold']:.4f} ms (plain "
+          f"{t['popmin_plain']:.4f}, torch.min {t['popmin_library']:.4f}); "
+          f"device time, mean of 20")
+    print(f"[time] popmin P=2^20: partials {t['popmin_big']:.4f} + fold "
+          f"{t['popmin_fold_big']:.4f} ms (plain {t['popmin_plain_big']:.4f}"
+          f", torch.min {t['popmin_library_big']:.4f}); device time")
+    return t
+
+
+def packed_step(obj, enc, parent):
+    """One DGO population step through the packed-word entry points:
+    generate -> decode -> the objective -> (min, argmin).  Returns (the
+    children's words, their points, their values, min, argmin)."""
+    from repro_torch.kernels.fixedpoint.ops import decode_packed
+    from repro_torch.kernels.graycode.ops import generate_population_packed
+    from repro_torch.kernels.popmin.ops import population_min
+
+    words = generate_population_packed(parent)
+    points = decode_packed(words, enc)
+    vals = obj.fn(points)
+    best, idx = population_min(vals)
+    return words, points, vals, best, idx
+
+
+def _packed_counts() -> dict:
+    from repro_torch.kernels.fixedpoint import ops as fops
+    from repro_torch.kernels.graycode import ops as gops
+    from repro_torch.kernels.popmin import ops as mops
+
+    return {"graycode": gops.launches, "fixedpoint": fops.launches,
+            "popmin": mops.launches, "popmin_fold": mops.fold_launches}
+
+
+def _zero_packed_counts() -> None:
+    from repro_torch.kernels.fixedpoint import ops as fops
+    from repro_torch.kernels.graycode import ops as gops
+    from repro_torch.kernels.popmin import ops as mops
+
+    gops.launches = fops.launches = mops.launches = mops.fold_launches = 0
+
+
+def phase_packed_main(dev) -> dict:
+    """The packed path's main run: ``PACKED_STEPS`` DGO steps (move to the
+    best child while it improves) at remote_sensing and at rastrigin n=9,
+    16 bits, with the four launch counts set to 0 just before and read
+    just after.  Then every step's three kernel outputs are held against
+    the plain versions and the oracles on the same inputs (bitwise;
+    exactly for the (min, argmin)), and its result against popstep's
+    ``population_step_ids`` on the same parent, one run over all
+    children: same id (or a near-tie), values within the bar.  Returns
+    the counts and each kernel's largest error over the steps."""
+    import torch
+
+    from repro_torch.core import objectives
+    from repro_torch.core.encoding import decode, unpack_bits
+    from repro_torch.core.population import table_on
+    from repro_torch.kernels.fixedpoint import ops as fops
+    from repro_torch.kernels.fixedpoint import ref as fref
+    from repro_torch.kernels.graycode import ops as gops
+    from repro_torch.kernels.graycode import ref as gref
+    from repro_torch.kernels.popmin import ops as mops
+    from repro_torch.kernels.popmin import ref as mref
+    from repro_torch.kernels.popstep import ops as sops
+
+    rast = objectives.get("rastrigin", n=9)
+    rs = objectives.get("remote_sensing")
+    problems = (("remote_sensing", rs, rs.encoding),
+                ("rastrigin n=9 16 bits", rast, rast.encoding.with_bits(16)))
+    rng = np.random.default_rng(12)
+    parents = [_bits_on(rng, enc.n_bits, dev) for _, _, enc in problems]
+
+    _zero_packed_counts()
+    runs = []
+    for (label, obj, enc), parent in zip(problems, parents):
+        val = float(obj.fn(decode(parent, enc)[None])[0])
+        steps = []
+        for _ in range(PACKED_STEPS):
+            words, points, vals, best, idx = packed_step(obj, enc, parent)
+            steps.append((parent, words, points, vals, float(best),
+                          int(idx)))
+            if not float(best) < val:
+                break
+            parent = unpack_bits(words[int(idx)], enc.n_bits)
+            val = float(best)
+        runs.append((label, obj, enc, steps, val))
+    counts = _packed_counts()
+
+    errs = dict.fromkeys(("graycode", "fixedpoint", "popmin"), 0.0)
+    for label, obj, enc, steps, val in runs:
+        ids = torch.arange(enc.population, device=dev)
+        table = table_on("table", enc.n_bits, dev)
+        for k, (parent, words, points, vals, best, idx) in enumerate(steps):
+            check(tuple(vals.shape) == (enc.population,)
+                  and bool(vals.isfinite().all()),
+                  f"packed {label} step {k}: values {tuple(vals.shape)}")
+            g_plain = gops.graycode_children_plain(parent, table[:, 0],
+                                                   table[:, 1])
+            g_oracle = gref.graycode_children_ref(parent, ids, words.shape[1])
+            for what, want in (("plain version", g_plain),
+                               ("oracle", g_oracle)):
+                check(words.shape == want.shape and torch.equal(words, want),
+                      f"packed {label} step {k}: graycode words differ from "
+                      f"the {what}")
+            f_plain = fops.decode_words_plain(words, enc)
+            f_oracle = fref.fixedpoint_decode_ref(words, enc)
+            for what, want in (("plain version", f_plain),
+                               ("oracle", f_oracle)):
+                check(points.shape == want.shape and torch.equal(
+                    points.view(torch.int32), want.view(torch.int32)),
+                      f"packed {label} step {k}: fixedpoint points differ "
+                      f"from the {what}")
+            pv, pi = mops.population_min_plain(vals)
+            rv, ri = mref.popmin_ref(vals)
+            check(_same(best, idx, pv, pi) and _same(best, idx, rv, ri),
+                  f"packed {label} step {k}: popmin ({best!r}, {idx}) plain "
+                  f"({float(pv)!r}, {int(pi)}) oracle ({float(rv)!r}, "
+                  f"{int(ri)})")
+            errs["graycode"] = max(errs["graycode"], _max_abs(words, g_plain))
+            errs["fixedpoint"] = max(errs["fixedpoint"],
+                                     _max_abs(points, f_plain))
+            errs["popmin"] = max(errs["popmin"], abs(best - float(pv)))
+            sv, si = sops.population_step_ids(obj, parent, ids, enc)
+            sv, si = float(sv), int(si)
+            check(np.isclose(best, sv, rtol=RTOL, atol=ATOL),
+                  f"packed {label} step {k}: ({best!r}, {idx}) vs popstep "
+                  f"({sv!r}, {si})")
+            if idx != si:   # a near-tie: both winners within the bar
+                a, b = float(vals[idx]), float(vals[si])
+                check(np.isclose(a, b, rtol=RTOL, atol=ATOL),
+                      f"packed {label} step {k}: id {idx} ({a!r}) vs "
+                      f"popstep id {si} ({b!r}) is not a near-tie")
+            print(f"[packed] main {label:<22} step {k}: ({best:.7g}, {idx})"
+                  f" popstep ({sv:.7g}, {si}); words, points and (min, "
+                  f"argmin) == plain == oracle")
+        print(f"[packed] main {label}: {len(steps)} steps, best {val:.7g}")
+    print(f"[packed] main launches: {counts}")
+    for name, n in counts.items():
+        check(n > 0, f"packed main path: {name} was never launched")
+    steps_run = sum(len(r[3]) for r in runs)
+    check(all(n == steps_run for n in counts.values()),
+          f"packed main path: {steps_run} steps but launches {counts}")
+
+    rs_parent = parents[0]
+    step_ms = device_ms(lambda: packed_step(rs, rs.encoding, rs_parent), 20,
+                        dev)
+    print(f"[time] packed step at remote_sensing (three kernels and the "
+          f"plain objective): {step_ms:.4f} ms device time, mean of 20")
+    return counts, errs
+
+
+def packed_bounds(t: dict) -> dict:
+    """(bound ms, bound by) of each packed kernel at the shapes it was
+    timed at: bytes (each input read once, each output written once;
+    int64 words) over the memory rate vs operations over the float32
+    peak (the integer work counted as one operation per output word)."""
+    def bound(nbytes, ops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_PEAK_FLOPS * 1e3
+        return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+    pop, w, nv = t["pop"], t["n_words"], t["n_vars"]
+    return {
+        # parent bits, two int32 segment bounds per child; the words out
+        "graycode": bound(t["n_bits"] + pop * 8 + pop * w * 8, pop * w),
+        # the words in, the float32 points out; a multiply and an add each
+        "fixedpoint": bound(pop * w * 8 + pop * nv * 4, 2 * pop * nv),
+        # the values in, (min, argmin) out; one comparison per value
+        "popmin": bound(pop * 4 + 8, pop),
+        "popmin_big": bound(2**20 * 4 + 8, 2**20),
+        # the partials in, (min, argmin) out
+        "popmin_fold": bound(t["popmin_parts"] * 8 + 8, t["popmin_parts"]),
+    }
+
+
+def phase_packed(dev) -> tuple[dict, dict, dict]:
+    """Phase 5: every packed kernel vs its plain version, their times at
+    the remote-sensing shape, then their main path."""
+    from repro_torch.core import objectives
+
+    rng = np.random.default_rng(8)
+    errs = {"graycode": check_graycode(rng, dev),
+            "fixedpoint": check_fixedpoint(rng, dev),
+            "popmin": check_popmin(rng, dev),
+            "popmin_fold": check_popmin_fold(rng, dev)}
+    rs = objectives.get("remote_sensing")
+    t = time_packed(dev, rs.encoding, rs)
+    bounds = packed_bounds(t)
+    for name, (ms, by) in bounds.items():
+        print(f"[packed] bound {name}: {ms * 1e3:.4f} us ({by})")
+    counts, main_errs = phase_packed_main(dev)
+    for name, err in main_errs.items():
+        errs[name] = max(errs[name], err)
+    return errs, t, dict(bounds=bounds, counts=counts)
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -598,11 +1027,25 @@ def main() -> None:
     fold_bound, fold_by = fold_bound_ms(fold)
     n_partials, n_fold = phase_main_path(dev, rs["ms"] + rs["fold_in_step_ms"],
                                          rs["rastrigin_ms"])
+    errs, pt, packed = phase_packed(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card_line())
     source = "src/repro_torch/kernels/popstep/csrc/popstep.cu"
-    # no single PyTorch call computes either function (library_ms null);
-    # popstep's plain_ms is the plain step, values and selection together
+    counts, bounds = packed["counts"], packed["bounds"]
+
+    def packed_entry(name, source, replaces, err, ms, plain_ms,
+                     library_ms=None):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": library_ms}
+
+    kernels_dir = "src/repro_torch/kernels"
+    # no single PyTorch call computes popstep, its fold, graycode or
+    # fixedpoint (library_ms null); popstep's plain_ms is the plain step,
+    # values and selection together; popmin's library call is
+    # torch.min(vals, dim=0), at P = 5,439
     print(json.dumps({"kernels": [{
         "name": "popstep", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:172",
@@ -613,7 +1056,23 @@ def main() -> None:
         "replaces": "src/repro/kernels/popstep/kernel.py:110",
         "launches": n_fold, "max_abs_err": fold["max_abs_err"],
         "ms": fold["ms"], "plain_ms": fold["plain_ms"],
-        "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": None}]}))
+        "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": None},
+        packed_entry("graycode", f"{kernels_dir}/graycode/csrc/graycode.cu",
+                     "src/repro/kernels/graycode/kernel.py:74",
+                     errs["graycode"], pt["graycode"], pt["graycode_plain"]),
+        packed_entry("fixedpoint",
+                     f"{kernels_dir}/fixedpoint/csrc/fixedpoint.cu",
+                     "src/repro/kernels/fixedpoint/kernel.py:67",
+                     errs["fixedpoint"], pt["fixedpoint"],
+                     pt["fixedpoint_plain"]),
+        packed_entry("popmin", f"{kernels_dir}/popmin/csrc/popmin.cu",
+                     "src/repro/kernels/popmin/kernel.py:41",
+                     errs["popmin"], pt["popmin"], pt["popmin_plain"],
+                     pt["popmin_library"]),
+        packed_entry("popmin_fold", f"{kernels_dir}/popmin/csrc/popmin.cu",
+                     "src/repro/kernels/popmin/kernel.py:30",
+                     errs["popmin_fold"], pt["popmin_fold"],
+                     pt["popmin_fold_plain"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "dgo_device.cuh"
+
 namespace popstep {
+
+using dgo::kFullMask;
 
 enum ObjectiveId {
   kQuadratic = 0,
@@ -39,7 +43,6 @@ struct ObjParams {
   float param;
 };
 
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kTwoPi = 6.283185307179586f;  // float32(2 * pi)
 constexpr float kE = 2.718281828459045f;
 

@@ -43,27 +43,26 @@
 // precise tanhf (~10,752 per child) costs more issue slots than the
 // multiply-adds; tensor cores and a cheaper tanh are later work.
 //
-// Built by kernel.py with nvcc for sm_90a (no --use_fast_math) into a shared
-// library with a plain C interface; every entry point launches on the
-// caller's stream and returns cudaGetLastError().
+// Built by kernel.py (through kernels/_build.py) with nvcc for sm_90a (no
+// --use_fast_math) into a shared library with a plain C interface; every
+// entry point launches on the caller's stream and returns
+// cudaGetLastError().
 
 #include <climits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "dgo_device.cuh"
 #include "objectives.cuh"
 
 namespace popstep {
 
+using namespace dgo;
+
 constexpr int kWarps = 4;               // children in flight per thread block
 constexpr int kThreads = kWarps * 32;
 constexpr int kFoldThreads = 256;
-
-struct Cand {
-  float v;
-  int row;
-};
 
 // --- stage 1: child level ---------------------------------------------------
 
@@ -77,56 +76,8 @@ __device__ __forceinline__ unsigned parent_level(const signed char* bits_str,
   return level;
 }
 
-// Field mask of the positions t = 0, 2, 4, ... of a bits-wide MSB-first
-// field (position t has weight 2^(bits-1-t)).
-__device__ __forceinline__ unsigned even_positions(int bits) {
-  unsigned m = 0u;
-  for (int t = 0; t < bits; t += 2) m |= 1u << (bits - 1 - t);
-  return m;
-}
-
-// Level of variable v in the child that inverts Gray segment [s, e):
-// parent level XOR the variable's slice of the binary-space pattern.
-__device__ __forceinline__ unsigned child_level(unsigned parent_level, int v,
-                                                int bits, int s, int e,
-                                                unsigned even_mask) {
-  const int base = v * bits;
-  const int lo_t = min(max(s - base, 0), bits);
-  const int hi_t = min(max(e - base, 0), bits);
-  const unsigned long long one = 1ull;
-  const unsigned full = static_cast<unsigned>((one << bits) - 1ull);
-  // positions inside [s, e), alternating from s
-  const unsigned inside =
-      static_cast<unsigned>((one << (bits - lo_t)) - (one << (bits - hi_t)));
-  const unsigned alt = ((s - base) & 1) ? (full ^ even_mask) : even_mask;
-  unsigned pattern = inside & alt;
-  // every position at or after e flips when the segment length is odd
-  if ((e - s) & 1)
-    pattern |= static_cast<unsigned>((one << (bits - hi_t)) - 1ull);
-  return parent_level ^ pattern;
-}
-
-// --- stage 2: decode --------------------------------------------------------
-
-__device__ __forceinline__ float decode_level(unsigned level, float lo,
-                                              float scale) {
-  return __fadd_rn(lo, __fmul_rn(__uint2float_rn(level), scale));
-}
-
-// --- stage 3: the (min, argmin) fold ----------------------------------------
-
-// Inside a virtual block: NaN first, then value, then row.
-__device__ __forceinline__ bool nan_first_better(Cand a, Cand b) {
-  const bool an = isnan(a.v), bn = isnan(b.v);
-  if (an || bn) return (an && bn) ? a.row < b.row : an;
-  return a.v < b.v || (a.v == b.v && a.row < b.row);
-}
-
-// Across virtual blocks: lexicographic on (value, child id).
-__device__ __forceinline__ bool lex_better(float av, int aid, float bv,
-                                           int bid) {
-  return av < bv || (av == bv && aid < bid);
-}
+// --- stages 2 and 3: decode_level and the (min, argmin) fold rules are in
+// dgo_device.cuh ------------------------------------------------------------
 
 struct PartialArgs {
   const signed char* parent; // (n_vars * bits,) 0/1 parent bit string
@@ -190,29 +141,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Butterfly reductions: every lane ends with the warp's best.  Both orders
-// are total (rows and ids are distinct), so the result is the same on
-// every lane and for any order of the inputs.
-__device__ __forceinline__ Cand warp_nan_first(Cand c) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const Cand q{__shfl_xor_sync(kFullMask, c.v, o),
-                 __shfl_xor_sync(kFullMask, c.row, o)};
-    if (nan_first_better(q, c)) c = q;
-  }
-  return c;
-}
-
-__device__ __forceinline__ void warp_lex(float& v, int& id) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float qv = __shfl_xor_sync(kFullMask, v, o);
-    const int qi = __shfl_xor_sync(kFullMask, id, o);
-    if (lex_better(qv, qi, v, id)) {
-      v = qv;
-      id = qi;
-    }
-  }
-}
-
 // One block.  With one virtual block every thread strides over its
 // partials; with several, each warp takes whole virtual blocks, drops the
 // NaN ones and keeps the lexicographic best.
@@ -232,16 +160,8 @@ __global__ void __launch_bounds__(kFoldThreads)
       const Cand q{part_val[p], part_row[p]};
       if (nan_first_better(q, c)) c = q;
     }
-    c = warp_nan_first(c);
-    if (lane == 0) {
-      sv[warp] = c.v;
-      sk[warp] = c.row;
-    }
-    __syncthreads();
+    const Cand b = block_nan_first<kFoldThreads>(c);
     if (threadIdx.x == 0) {
-      Cand b{sv[0], sk[0]};
-      for (int w = 1; w < kFoldWarps; ++w)
-        if (nan_first_better(Cand{sv[w], sk[w]}, b)) b = Cand{sv[w], sk[w]};
       *out_val = b.v;
       *out_id = b.row == INT_MAX ? sentinel : ids[b.row];
     }

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.encoding import Encoding, decode_levels, levels_of
 from repro_torch.core.objectives import OBJECTIVE_IDS, RS_NVARS
 from repro_torch.core.population import table_on
+from repro_torch.kernels._plain import child_levels, nan_first_rows
 
 launches = 0
 fold_launches = 0
@@ -34,7 +35,6 @@ fold_launches = 0
 CHUNK = 4                 # rows per thread block of the partials launch
 MAX_SMEM = 48 * 1024      # static limit for the decoded-point buffers
 WARPS = 4                 # warps per thread block (csrc/popstep.cu kWarps)
-_INT_MAX = 2**31 - 1
 
 
 def _fn_of(objective):
@@ -49,27 +49,6 @@ def _kernel_of(objective):
 # stages in plain PyTorch (the kernel's arithmetic, vectorized)
 # ---------------------------------------------------------------------------
 
-def child_levels(parent_levels: torch.Tensor, starts: torch.Tensor,
-                 ends: torch.Tensor, enc: Encoding) -> torch.Tensor:
-    """(n_vars,) parent levels + (K,) segments -> (K, n_vars) int64 child
-    levels, by the closed-form binary-space pattern (see
-    ``core.population.segment_patterns``)."""
-    b = enc.bits
-    dev = parent_levels.device
-    base = torch.arange(enc.n_vars, device=dev) * b              # (n_vars,)
-    s = starts.to(torch.int64)[:, None]
-    e = ends.to(torch.int64)[:, None]
-    lo_t = (s - base).clamp(0, b)
-    hi_t = (e - base).clamp(0, b)
-    one = torch.ones((), dtype=torch.int64, device=dev)
-    inside = (one << (b - lo_t)) - (one << (b - hi_t))
-    even = sum(1 << (b - 1 - t) for t in range(0, b, 2))
-    full = (1 << b) - 1
-    alt = torch.where(((s - base) & 1) == 1, full ^ even, even)
-    tail = torch.where(((e - s) & 1) == 1, (one << (b - hi_t)) - 1, 0)
-    return parent_levels.to(torch.int64) ^ ((inside & alt) | tail)
-
-
 def fold_partials_plain(part_val: torch.Tensor, part_row: torch.Tensor,
                         ids: torch.Tensor, n_vblocks: int,
                         sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -81,16 +60,8 @@ def fold_partials_plain(part_val: torch.Tensor, part_row: torch.Tensor,
     returned as (value, ids[row]); with several, NaN runs are dropped and
     the rest fold lexicographically on (value, ids[row]) from
     (+inf, sentinel)."""
-    v = part_val.reshape(n_vblocks, -1)
-    r = part_row.to(torch.int64).reshape(n_vblocks, -1)
-    nan = torch.isnan(v)
-    any_nan = nan.any(1)
-    nan_row = torch.where(nan, r, _INT_MAX).amin(1)
-    vmin = torch.where(nan, torch.inf, v).amin(1)
-    min_row = torch.where(~nan & (v == vmin[:, None]), r, _INT_MAX).amin(1)
-    row = torch.where(any_nan, nan_row, min_row)
-    pos = (r == row[:, None]).to(torch.int8).argmax(1, keepdim=True)
-    best = v.gather(1, pos)[:, 0]     # the winner's own value (keeps -0.0)
+    best, row = nan_first_rows(part_val.reshape(n_vblocks, -1),
+                               part_row.to(torch.int64).reshape(n_vblocks, -1))
     gid = ids.to(torch.int64)[row.clamp(max=ids.shape[0] - 1)]
     if n_vblocks == 1:
         return best[0], gid[0].to(torch.int32)
@@ -180,9 +151,9 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb):
     dev = child_ids.device
     if valid is not None and valid.device != dev:
         raise ValueError(f"valid is on {valid.device}, child_ids on {dev}")
-    from repro_torch.kernels.popstep.kernel import load
+    from repro_torch.kernels.popstep.kernel import LIBRARY
 
-    lib = load()
+    lib = LIBRARY.load()
     k = child_ids.shape[0]
     vb = k // n_vb
     cpv = math.ceil(vb / CHUNK)
@@ -245,7 +216,7 @@ def fold_partials(part_val: torch.Tensor, part_row: torch.Tensor,
     if not part_val.is_cuda:
         return fold_partials_plain(part_val, part_row, ids, n_vblocks,
                                    sentinel)
-    from repro_torch.kernels.popstep.kernel import load
+    from repro_torch.kernels.popstep.kernel import LIBRARY
 
     n = part_val.shape[0]
     if n % n_vblocks or part_row.shape != (n,):
@@ -257,10 +228,10 @@ def fold_partials(part_val: torch.Tensor, part_row: torch.Tensor,
     ids32 = ids.to(device=dev, dtype=torch.int32).contiguous()
     out_val = torch.empty(1, dtype=torch.float32, device=dev)
     out_id = torch.empty(1, dtype=torch.int32, device=dev)
-    err = load().popstep_fold(pv.data_ptr(), pr.data_ptr(), ids32.data_ptr(),
-                              n_vblocks, n // n_vblocks, sentinel,
-                              out_val.data_ptr(), out_id.data_ptr(),
-                              torch.cuda.current_stream(dev).cuda_stream)
+    err = LIBRARY.load().popstep_fold(
+        pv.data_ptr(), pr.data_ptr(), ids32.data_ptr(), n_vblocks,
+        n // n_vblocks, sentinel, out_val.data_ptr(), out_id.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"popstep fold launch failed: CUDA error {err}")
     return out_val[0], out_id[0]

@@ -11,14 +11,7 @@ import torch
 
 from repro_torch.core.encoding import Encoding, decode
 from repro_torch.core.population import generate_children, generate_population
-
-
-def argmin_nan_first(vals: torch.Tensor) -> torch.Tensor:
-    """Index of the first NaN if any, else of the first minimum."""
-    nan = torch.isnan(vals)
-    first_nan = nan.to(torch.int32).argmax()
-    first_min = torch.where(nan, torch.inf, vals).argmin()
-    return torch.where(nan.any(), first_nan, first_min)
+from repro_torch.kernels._plain import argmin_nan_first
 
 
 def popstep_ref(f_batch: Callable[[torch.Tensor], torch.Tensor],

@@ -1,5 +1,5 @@
-"""Card-only checks of the CUDA popstep kernel: the kernel vs its plain
-PyTorch version on the same CUDA tensors (chip_smoke.py's phases 2-4 as
+"""Card-only checks of the CUDA kernels: each kernel vs its plain
+PyTorch version on the same CUDA tensors (chip_smoke.py's phases as
 tests).  Whether a card is present is decided in the ``cuda`` fixture,
 so every worker collects the same tests; without a card they skip.
 
@@ -13,7 +13,13 @@ import torch
 
 from repro_torch.core import objectives
 from repro_torch.core.distributed import _shard_plan
+from repro_torch.core.encoding import Encoding, pack_bits
+from repro_torch.core.population import table_on
 from repro_torch.core.solver import Distributed, Problem, solve
+from repro_torch.kernels._plain import nan_first_rows
+from repro_torch.kernels.fixedpoint import ops as fixedpoint
+from repro_torch.kernels.graycode import ops as graycode
+from repro_torch.kernels.popmin import ops as popmin
 from repro_torch.kernels.popstep import ops
 
 pytestmark = pytest.mark.gpu
@@ -24,7 +30,7 @@ TOL = 1e-5
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the popstep kernel has no CPU mode)")
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -133,3 +139,68 @@ def test_main_path_goes_through_the_kernel(cuda):
     h_p, h_f = pop.extras["history"], fused.extras["history"]
     n = min(len(h_p), len(h_f))
     assert np.allclose(h_p[:n], h_f[:n], rtol=TOL, atol=TOL)
+
+
+def _bits(shape, seed, dev):
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 2, shape).astype(np.int8), device=dev)
+
+
+@pytest.mark.parametrize("n", [100, 2720])
+def test_graycode_kernel_matches_plain_version(cuda, n):
+    parent = _bits(n, n, cuda)
+    before = graycode.launches
+    got = graycode.generate_population_packed(parent)
+    assert graycode.launches == before + 1
+    table = table_on("table", n, cuda)
+    want = graycode.graycode_children_plain(parent, table[:, 0], table[:, 1])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_vars,bits,lo,hi", [(680, 4, -4.0, 4.0),
+                                               (5, 32, -3.0, 7.0)])
+def test_fixedpoint_kernel_matches_plain_version(cuda, n_vars, bits, lo, hi):
+    enc = Encoding(n_vars, bits, lo, hi)
+    words = pack_bits(_bits((enc.population, enc.n_bits), bits, cuda))
+    before = fixedpoint.launches
+    got = fixedpoint.decode_packed(words, enc)
+    assert fixedpoint.launches == before + 1
+    want = fixedpoint.decode_words_plain(words, enc)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("p", [5439, 2**20])
+def test_popmin_kernel_matches_plain_version(cuda, p):
+    vals = torch.as_tensor(np.random.default_rng(p).standard_normal(
+        p).astype(np.float32), device=cuda)
+    late_nan = vals.clone()
+    late_nan[p - 3] = float("nan")
+    for v in (vals, late_nan):
+        before = (popmin.launches, popmin.fold_launches)
+        kv, ki = popmin.population_min(v)
+        assert (popmin.launches, popmin.fold_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+        pv, pi = popmin.population_min_plain(v)
+        assert int(ki) == int(pi)
+        assert float(kv) == float(pv) or (np.isnan(float(kv))
+                                          and np.isnan(float(pv)))
+
+
+@pytest.mark.parametrize("k", [6, 1024])
+def test_popmin_fold_kernel_matches_plain_version(cuda, k):
+    """The fold alone on crafted partials (NaNs, ties, a -0.0) with
+    unordered indices; not counted."""
+    rng = np.random.default_rng(k)
+    vals = rng.integers(-5, 5, k).astype(np.float32)
+    rows = rng.permutation(3 * k)[:k].astype(np.int32)
+    vals[[0, k - 1]] = [-0.0, -5.0]
+    cases = (vals, np.where(np.arange(k) % 3 == 1, np.nan, vals))
+    for v in cases:
+        pv = torch.as_tensor(v, device=cuda)
+        pr = torch.as_tensor(rows, device=cuda)
+        before = popmin.fold_launches
+        kv, ki = popmin.fold_partials(pv, pr)
+        assert popmin.fold_launches == before
+        wv, wi = nan_first_rows(pv[None], pr.long()[None])
+        assert int(ki) == int(wi[0])
+        assert torch.equal(kv.view(torch.int32), wv[0].view(torch.int32))

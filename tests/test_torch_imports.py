@@ -55,3 +55,22 @@ def test_core_all_is_a_subset_of_the_reference():
     assert set(repro_torch.core.__all__) <= set(repro.core.__all__)
     for name in repro_torch.core.__all__:
         assert hasattr(repro_torch.core, name), name
+
+
+KERNELS = ("popstep", "graycode", "fixedpoint", "popmin")
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_every_kernel_package_is_covered(name):
+    """Each kernel package's build, wrapper and oracle modules are among
+    the modules imported above, and its library names sources that
+    exist (a ``.cu`` first)."""
+    import importlib
+
+    mods = _module_names()
+    assert "repro_torch.kernels._build" in mods
+    for part in ("kernel", "ops", "ref"):
+        assert f"repro_torch.kernels.{name}.{part}" in mods
+    lib = importlib.import_module(f"repro_torch.kernels.{name}.kernel").LIBRARY
+    assert lib.name == name and lib.sources[0].endswith(".cu")
+    assert all((lib.csrc / s).is_file() for s in lib.sources)
