@@ -1,0 +1,247 @@
+"""LM assembly: ArchConfig -> parameter spec -> prefill / decode, the twin
+of ``repro.models.lm`` for dense attention models.
+
+A model is a *plan*: an ordered list of segments, each a run of
+identical layers.  The reference scans stacked parameters; the port keeps
+each segment as a list of per-layer :class:`~repro_torch.models.layers.
+Params` modules and loops over them in Python.
+
+Paths:
+  lm_prefill(params, arch, batch, cache_len)  -> (logits_last, cache)
+  lm_decode(params, arch, token, cache)       -> (logits, cache)
+
+Where ``arch.window`` is None every attention layer is global and is
+given no window, so ``use_flash_attention`` routes its full-sequence
+attention through the CUDA kernel.  (The reference passes each layer a
+window of 0 in that case, which keeps its Pallas kernel off every
+model's train and serve path: ROADMAP queue 3.)  ``lm_loss``, the
+chunked cross-entropy and the other block kinds are not ported yet
+(ROADMAP queue 1 #8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.distributed import resolve_device
+from repro_torch.models import blocks as blk
+from repro_torch.models.layers import (
+    ParamSpec,
+    Params,
+    embed,
+    embedding_spec,
+    init_params,
+    param_count,
+    unembed,
+)
+
+_LATER = "not ported yet (ROADMAP queue 1 #8)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # gemma: embeddings * sqrt(d)
+    use_rope: bool = True
+    rope_theta: float = 10_000.0
+    mlp_kind: str = "swiglu"
+    norm_kind: str = "rmsnorm"
+    # sliding-window pattern
+    window: int | None = None
+    global_every: int | None = None  # layer i global iff (i+1) % global_every == 0
+    # MLA
+    use_mla: bool = False
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_shared: int = 0
+    moe_dense_layers: int = 0
+    moe_d_ff_dense: int = 0
+    moe_capacity: float = 1.25
+    # SSM / hybrid
+    block_pattern: str = "attn"      # attn | xlstm | mamba | zamba
+    ssm_state: int = 64
+    slstm_every: int = 0
+    shared_attn_every: int = 0
+    # enc-dec / frontends (stubs provide precomputed embeddings)
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    n_frames: int = 1500
+    vision_tokens: int = 0
+    d_frontend: int = 1024           # CLIP embedding width (vlm stub)
+    # MTP
+    mtp: bool = False
+    mtp_weight: float = 0.3
+    # compute
+    remat: bool = True
+    use_flash_attention: bool = False   # the CUDA flash-attention kernel
+    attn_chunk_q: int = 512
+    mamba_chunk: int = 256
+    loss_chunk: int = 512
+    sub_quadratic: bool = False      # qualifies for long_500k
+
+    @property
+    def head_dim_v(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kind: str                        # attn (the only kind ported)
+    n: int
+    moe: bool = False
+    d_ff: int | None = None          # dense-FFN override
+    cross: bool = False
+    name: str = "seg0"
+
+
+def build_plan(arch: ArchConfig) -> list[Segment]:
+    if (arch.block_pattern != "attn" or arch.use_mla or arch.moe_experts
+            or arch.enc_dec or arch.vision_tokens or arch.mtp):
+        raise NotImplementedError(f"{arch.name}: only dense attention "
+                                  f"models are ported; the rest is {_LATER}")
+    return [Segment("attn", arch.n_layers)]
+
+
+def layer_windows(arch: ArchConfig, seg_start: int, n: int
+                  ) -> list[int | None]:
+    """Per-layer windows of an attention segment: None where the layer is
+    global (every layer when ``arch.window`` is None), else its size."""
+    if arch.window is None:
+        return [None] * n
+    idx = range(seg_start, seg_start + n)
+    if arch.global_every:
+        return [None if (i + 1) % arch.global_every == 0 else arch.window
+                for i in idx]
+    return [arch.window] * n
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def model_spec(arch: ArchConfig) -> dict:
+    spec: dict[str, Any] = {"embed": embedding_spec(arch.vocab_size,
+                                                    arch.d_model)}
+    spec["segments"] = {
+        seg.name: [blk.attn_block_spec(arch, moe=seg.moe, cross=seg.cross,
+                                       d_ff=seg.d_ff)] * seg.n
+        for seg in build_plan(arch)}
+    spec["final_norm"] = blk._norm_spec(arch)
+    if not arch.tie_embeddings:
+        spec["lm_head"] = ParamSpec((arch.d_model, arch.vocab_size),
+                                    scale=0.02)
+    return spec
+
+
+def init_model(arch: ArchConfig, generator: torch.Generator,
+               dtype=torch.float32) -> Params:
+    """Random weights on ``generator``'s device, drawn from it."""
+    return init_params(model_spec(arch), generator, dtype)
+
+
+def n_params(arch: ArchConfig) -> int:
+    return param_count(model_spec(arch))
+
+
+def load_reference_params(tree, device=None) -> Params:
+    """The port's parameters from the JAX package's parameter tree as
+    numpy arrays (``jax.tree.map(np.asarray, params)``), so that both
+    packages compute the same thing.  The reference stacks each segment's
+    layers on a leading axis (``segments/seg0/attn/wq`` is (L, d, Hq, hd));
+    here they become a list of L per-layer trees.  ``device``: None is the
+    CUDA card (``RuntimeError`` without one), ``"cpu"`` the CPU."""
+    dev = resolve_device(device)
+
+    def convert(t, i=None):
+        if isinstance(t, dict):
+            return {k: convert(v, i) for k, v in t.items()}
+        a = np.asarray(t)
+        return torch.tensor(a if i is None else a[i], device=dev)
+
+    out = {k: convert(v) for k, v in tree.items() if k != "segments"}
+    out["segments"] = {}
+    for name, seg in tree["segments"].items():
+        first = seg
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        out["segments"][name] = [convert(seg, i) for i in range(len(first))]
+    return Params(out)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, arch: ArchConfig, batch, dtype):
+    """Token embeddings (B, S, D) in ``dtype``; frontends are not ported."""
+    x = embed(params["embed"], batch["tokens"]).to(dtype)
+    if arch.embed_scale:
+        x = x * torch.sqrt(torch.tensor(arch.d_model, dtype=dtype,
+                                        device=x.device))
+    return x
+
+
+def _readout(params, arch: ArchConfig, h):
+    """float32 logits of the final-normed hidden states h (B, 1, D)."""
+    if arch.tie_embeddings or "lm_head" not in params:
+        return unembed(params["embed"], h.float())
+    return h.float() @ params["lm_head"].float()
+
+
+def lm_prefill(params, arch: ArchConfig, batch, cache_len: int,
+               dtype=torch.bfloat16):
+    """Prompt forward; returns (last-position logits (B, V) float32, cache).
+    The cache holds each segment's list of per-layer (k, v), each
+    (B, cache_len, Hkv, hd), and ``"pos"``, the prompt length."""
+    x = _embed_inputs(params, arch, batch, dtype)
+    cache: dict[str, Any] = {}
+    layer_idx = 0
+    for seg in build_plan(arch):
+        wins = layer_windows(arch, layer_idx, seg.n)
+        kvs = []
+        for pl, w in zip(params["segments"][seg.name], wins):
+            x, _, kv = blk.attn_block_prefill(pl, arch, x, cache_len,
+                                              window=w)
+            kvs.append(kv)
+        cache[seg.name] = kvs
+        layer_idx += seg.n
+    h = blk._norm(arch, params["final_norm"], x[:, -1:])
+    cache["pos"] = x.shape[1]
+    return _readout(params, arch, h)[:, 0], cache
+
+
+def lm_decode(params, arch: ArchConfig, token, cache, dtype=torch.bfloat16):
+    """One decode step. token: (B,) integers.  Returns (logits (B, V)
+    float32, cache); the cache's tensors are updated in place."""
+    pos = cache["pos"]
+    x = _embed_inputs(params, arch, {"tokens": token[:, None]}, dtype)
+    new_cache: dict[str, Any] = {"pos": pos + 1}
+    layer_idx = 0
+    for seg in build_plan(arch):
+        wins = layer_windows(arch, layer_idx, seg.n)
+        kvs = []
+        for pl, kv, w in zip(params["segments"][seg.name], cache[seg.name],
+                             wins):
+            x, kv = blk.attn_block_decode(pl, arch, x, kv, pos, window=w)
+            kvs.append(kv)
+        new_cache[seg.name] = kvs
+        layer_idx += seg.n
+    h = blk._norm(arch, params["final_norm"], x)
+    return _readout(params, arch, h)[:, 0], new_cache

@@ -1,0 +1,136 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``)
+held against the JAX package's: the wrapper's plain version (what it runs
+on CPU tensors) vs ``repro.kernels.flash_attention.ops.flash_sdpa`` in
+interpret mode and vs both oracles, on the same numpy inputs."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_sdpa as jax_flash_sdpa
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro_torch.kernels.flash_attention import ops, ref
+
+# the cases of tests/test_kernels.py::test_flash_attention_matches_oracle
+KERNEL_CASES = [
+    (2, 128, 4, 4, 32, True, 0, "float32"),
+    (1, 256, 8, 2, 64, True, 0, "float32"),
+    (2, 192, 4, 1, 32, True, 64, "float32"),     # MQA + sliding window
+    (1, 128, 4, 4, 32, False, 0, "float32"),     # bidirectional
+    (1, 256, 4, 2, 64, True, 0, "bfloat16"),
+]
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # tests/test_kernels.py:65
+
+
+def _inputs(seed, b, s, hq, hkv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, hq, hd), np.float32),
+            rng.standard_normal((b, s, hkv, hd), np.float32),
+            rng.standard_normal((b, s, hkv, hd), np.float32))
+
+
+def _both(arrays, dt):
+    """The same arrays as JAX and torch tensors of type ``dt`` (float32
+    -> bfloat16 rounds to nearest even on both sides)."""
+    jx = [jnp.asarray(a).astype(jnp.dtype(dt)) for a in arrays]
+    tx = [torch.as_tensor(a).to(getattr(torch, dt)) for a in arrays]
+    return jx, tx
+
+
+def _oracle(q, k, v, causal, window):
+    """Port's ref.py in the model layout (B, S, H, hd)."""
+    return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window).transpose(1, 2)
+
+
+def _jax_oracle(q, k, v, causal, window):
+    return jnp.moveaxis(jax_ref(jnp.moveaxis(q, 1, 2), jnp.moveaxis(k, 1, 2),
+                                jnp.moveaxis(v, 1, 2), causal=causal,
+                                window=window), 2, 1)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window,dt", KERNEL_CASES)
+def test_plain_matches_jax_flash_sdpa(b, s, hq, hkv, hd, causal, window, dt):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(s + hq, b, s, hq, hkv, hd), dt)
+    want = jax_flash_sdpa(jq, jk, jv, causal=causal, window=window,
+                          block_q=64, block_k=64)
+    before = ops.launches
+    got = ops.flash_sdpa(tq, tk, tv, causal=causal, window=window)
+    assert ops.launches == before          # CPU tensors: the plain version
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dt])
+    np.testing.assert_allclose(_np(got), _np(_oracle(tq, tk, tv, causal,
+                                                     window)), atol=TOL[dt])
+
+
+@pytest.mark.parametrize("s", [100, 160])
+def test_non_causal_off_block_lengths_match_the_oracles(s):
+    """S not a multiple of the blocks, causal=False: the port matches both
+    oracles; the JAX wrapper pads K/V with zeros that it never masks and
+    is wrong there (a reference fault, ROADMAP queue 3)."""
+    arrays = _inputs(s, 1, s, 4, 2, 32)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    want = _np(_jax_oracle(jq, jk, jv, False, 0))
+    got = ops.flash_sdpa(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), want, atol=1e-4)
+    np.testing.assert_allclose(_np(_oracle(tq, tk, tv, False, 0)), want,
+                               atol=1e-5)
+    jax_got = _np(jax_flash_sdpa(jq, jk, jv, causal=False, block_q=64,
+                                 block_k=64))
+    assert np.abs(jax_got - want).max() > 1e-2
+
+
+@pytest.mark.parametrize("s,causal,window,hq,hkv", [
+    (100, True, 0, 4, 2), (160, True, 40, 6, 1), (200, False, 0, 4, 4),
+    (64, True, 1, 2, 1), (130, True, 200, 4, 2)])
+def test_plain_matches_port_oracle(s, causal, window, hq, hkv):
+    """Off-block lengths, windows narrower and wider than a tile, a window
+    of one key, MQA: the plain version (skipped tiles and all) vs ref.py."""
+    tq, tk, tv = (torch.as_tensor(a) for a in _inputs(7, 2, s, hq, hkv, 16))
+    got = ops.flash_sdpa(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(_oracle(tq, tk, tv, causal,
+                                                     window)), atol=1e-5)
+
+
+def test_key_range_skips_tiles_outside_the_mask():
+    assert list(ops.key_range(0, 1024, True, 0)) == [0]
+    assert list(ops.key_range(960, 1024, True, 0)) == list(range(0, 1024, 64))
+    assert list(ops.key_range(960, 1024, True, 100)) == [832, 896, 960]
+    assert list(ops.key_range(0, 100, False, 0)) == [0, 64]
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "gqa", "shape",
+                                 "window"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = (torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16),
+               torch.zeros(1, 8, 2, 16))
+    kw = {}
+    if bad == "head_dim":
+        q, k, v = q[..., :12], k[..., :12], v[..., :12]
+    elif bad == "dtype":
+        q = q.double()
+    elif bad == "gqa":
+        k, v = torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16)
+    elif bad == "shape":
+        k = torch.zeros(1, 9, 2, 16)
+    else:
+        kw["window"] = -1
+    with pytest.raises(ValueError):
+        ops.flash_sdpa(q, k, v, **kw)
+
+
+def test_bf16_output_keeps_its_type_and_rounds_once():
+    """bfloat16 inputs are widened, computed in float32 and rounded once:
+    the result is the float32 computation on the widened inputs, rounded."""
+    tq, tk, tv = (torch.as_tensor(a).bfloat16()
+                  for a in _inputs(3, 1, 96, 4, 2, 32))
+    got = ops.flash_sdpa(tq, tk, tv)
+    want = ops.flash_sdpa(tq.float(), tk.float(), tv.float()).bfloat16()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)

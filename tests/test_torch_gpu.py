@@ -18,6 +18,8 @@ from repro_torch.core.population import table_on
 from repro_torch.core.solver import Distributed, Problem, solve
 from repro_torch.kernels._plain import nan_first_rows
 from repro_torch.kernels.fixedpoint import ops as fixedpoint
+from repro_torch.kernels.flash_attention import ops as flash
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.graycode import ops as graycode
 from repro_torch.kernels.popmin import ops as popmin
 from repro_torch.kernels.popstep import ops
@@ -204,3 +206,61 @@ def test_popmin_fold_kernel_matches_plain_version(cuda, k):
         wv, wi = nan_first_rows(pv[None], pr.long()[None])
         assert int(ki) == int(wi[0])
         assert torch.equal(kv.view(torch.int32), wv[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window,dt", [
+    (1, 256, 8, 2, 64, True, 0, torch.float32),
+    (1, 100, 4, 2, 32, False, 0, torch.float32),
+    (2, 300, 12, 1, 128, True, 64, torch.float32),
+    (2, 200, 4, 2, 16, True, 0, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain_version(cuda, b, s, hq, hkv, hd, causal,
+                                            window, dt):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(b, s, h, hd, generator=g, device=cuda).to(dt)
+               for h in (hq, hkv, hkv))
+    before = flash.launches
+    got = flash.flash_sdpa(q, k, v, causal=causal, window=window)
+    assert flash.launches == before + 1 and got.dtype == dt
+    plain = flash.flash_sdpa_plain(q, k, v, scale=hd ** -0.5, causal=causal,
+                                   window=window)
+    oracle = flash_ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window).transpose(1, 2)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    for want in (plain, oracle):
+        assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_kernel_takes_strided_inputs(cuda):
+    """A transposed view is made contiguous by the wrapper, not misread."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, 4, 128, 32, generator=g, device=cuda).transpose(1, 2)
+    k = torch.randn(2, 2, 128, 32, generator=g, device=cuda).transpose(1, 2)
+    got = flash.flash_sdpa(q, k, k)
+    want = flash.flash_sdpa_plain(q, k, k, scale=32 ** -0.5)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_lm_prefill_routes_every_layer_through_the_kernel(cuda):
+    """reduced(qwen2-1.5b) at S = 160: one launch per layer, and the same
+    logits as the chunked plain attention on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import init_model, lm_prefill
+
+    arch = dataclasses.replace(reduced(get_arch("qwen2-1.5b")),
+                               use_flash_attention=True)
+    params = init_model(arch, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, arch.vocab_size, (2, 160)), device=cuda)
+    flash.launches = 0
+    got, _ = lm_prefill(params, arch, {"tokens": toks}, 170,
+                        dtype=torch.float32)
+    assert flash.launches == arch.n_layers
+    want, _ = lm_prefill(params, dataclasses.replace(
+        arch, use_flash_attention=False), {"tokens": toks}, 170,
+        dtype=torch.float32)
+    assert flash.launches == arch.n_layers
+    assert float((got - want).abs().max()) <= 2e-4

@@ -57,7 +57,7 @@ def test_core_all_is_a_subset_of_the_reference():
         assert hasattr(repro_torch.core, name), name
 
 
-KERNELS = ("popstep", "graycode", "fixedpoint", "popmin")
+KERNELS = ("popstep", "graycode", "fixedpoint", "popmin", "flash_attention")
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -74,3 +74,16 @@ def test_every_kernel_package_is_covered(name):
     lib = importlib.import_module(f"repro_torch.kernels.{name}.kernel").LIBRARY
     assert lib.name == name and lib.sources[0].endswith(".cu")
     assert all((lib.csrc / s).is_file() for s in lib.sources)
+
+
+ZOO = ("repro_torch.configs", "repro_torch.configs.qwen2_1_5b",
+       "repro_torch.models", "repro_torch.models.layers",
+       "repro_torch.models.attention", "repro_torch.models.blocks",
+       "repro_torch.models.lm", "repro_torch.launch",
+       "repro_torch.launch.serve")
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_every_zoo_module_is_covered(name):
+    """The serving slice's modules are among the modules imported above."""
+    assert name in _module_names()
