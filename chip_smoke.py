@@ -42,12 +42,15 @@ Phases (any failure exits non-zero; none is caught):
              against the plain versions and oracles on the same inputs,
              and its result against popstep's ``population_step_ids``
              on the same parent (same id unless a near-tie);
-6. flash   — the flash-attention kernel vs its plain version and ref.py
-             (max |err| <= 1e-4 in f32, 2e-2 in bf16) at the reference
-             kernel tests' shapes, at S = 100 and 160 without the causal
-             mask, with window 64 and MQA, in bf16, and at the serving
-             shape (B=4, S=1024, Hq=12, Hkv=2, hd=128); its device time
-             at the serving shape and at S = 32,768, B = 1, beside
+6. flash   — the flash-attention kernels vs their plain version and
+             ref.py (max |err| <= 1e-4 in f32, 2e-2 in bf16) at the
+             reference kernel tests' shapes, at S = 100 and 160 without
+             the causal mask, hd 16 at S = 200, window 64 with MQA, and
+             the serving shape (B=4, S=1024, Hq=12, Hkv=2, hd=128), each
+             in f32 (the CUDA-core kernel) and in bf16 (the wgmma/TMA
+             tensor-core kernel); each kernel's device time at the
+             serving shape and at S = 32,768, B = 1, beside its bound
+             (f32 at 67 TFLOP/s, bf16 at 989),
              ``scaled_dot_product_attention`` and the plain version;
 7. serve   — ``serve_lm`` on full-width qwen2-1.5b with
              ``use_flash_attention=True`` (f32, B=4, prompt 1024, 16
@@ -56,12 +59,18 @@ Phases (any failure exits non-zero; none is caught):
              through kernel and plain version; one prefill under the
              profiler; the same weights and prompts served through the
              chunked plain attention: prefill logits within 1e-3 x
-             max |logit|, greedy tokens equal but at near-ties.
+             max |logit|, greedy tokens equal but at near-ties; then one
+             bf16 prefill (``lm_prefill``'s default type) with the count
+             set to 0 around it (28 launches), its wall and flash share,
+             its logits within 2e-2 x max |logit| of the bf16 prefill
+             through the chunked plain attention, argmax equal but at
+             near-ties.
 
 The last lines are the card's name and power limit, a JSON line with
 every kernel's measurements (``popstep`` — the partials launch —,
 ``popstep_fold``, ``graycode``, ``fixedpoint``, ``popmin`` — its
-partials launch —, ``popmin_fold`` and ``flash_attention``), and
+partials launch —, ``popmin_fold``, ``flash_attention`` — f32 — and
+``flash_attention_bf16``), and
 ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it exits non-zero and prints no
@@ -82,6 +91,7 @@ SRC = ROOT / "src"
 
 RTOL = ATOL = 1e-5          # the reference kernel's bar (tests/test_popstep.py)
 FP32_PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+BF16_PEAK_FLOPS = 989e12    # H100 SXM, bf16 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 
 
@@ -1048,22 +1058,29 @@ def phase_packed(dev) -> tuple[dict, dict, dict]:
 # ---------------------------------------------------------------------------
 
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # tests/test_kernels.py:65
-# (B, S, Hq, Hkv, hd, causal, window, dtype): the cases of
-# tests/test_kernels.py:49-55; S = 100 and 160 without the causal mask
-# (not block multiples); window 64 with MQA at full head width; bf16 at
-# the serving shape; the serving shape itself (the main path's)
-FLASH_CASES = (
-    (2, 128, 4, 4, 32, True, 0, "float32"),
-    (1, 256, 8, 2, 64, True, 0, "float32"),
-    (2, 192, 4, 1, 32, True, 64, "float32"),
-    (1, 128, 4, 4, 32, False, 0, "float32"),
-    (1, 256, 4, 2, 64, True, 0, "bfloat16"),
-    (1, 100, 4, 2, 32, False, 0, "float32"),
-    (1, 160, 4, 2, 32, False, 0, "float32"),
-    (2, 300, 12, 1, 128, True, 64, "float32"),
-    (4, 1024, 12, 2, 128, True, 0, "bfloat16"),
-    (4, 1024, 12, 2, 128, True, 0, "float32"),
+# (B, S, Hq, Hkv, hd, causal): the cases of tests/test_kernels.py:49-55;
+# S = 100 and 160 without the causal mask (not tile multiples); hd 16 at
+# S = 200; window 64 with MQA at full head width; the serving shape (the
+# main path's).  Each runs in float32 (the CUDA-core kernel) and in
+# bfloat16 (the tensor-core kernel), so every head dim, ragged S, the
+# window and MQA pass through both.
+_FLASH_SHAPES = (
+    (2, 128, 4, 4, 32, True, 0),
+    (1, 256, 8, 2, 64, True, 0),
+    (2, 192, 4, 1, 32, True, 64),
+    (1, 128, 4, 4, 32, False, 0),
+    (1, 256, 4, 2, 64, True, 0),
+    (1, 100, 4, 2, 32, False, 0),
+    (1, 160, 4, 2, 32, False, 0),
+    (2, 200, 4, 2, 16, True, 0),
+    (2, 300, 12, 1, 128, True, 64),
+    (4, 1024, 12, 2, 128, True, 0),
 )
+FLASH_CASES = tuple(c + (dt,) for dt in ("float32", "bfloat16")
+                    for c in _FLASH_SHAPES)
+FLASH_KERNELS = {"float32": "flash_attention_f32_kernel",
+                 "bfloat16": "flash_attention_bf16_kernel"}
+FLASH_PEAKS = {"float32": FP32_PEAK_FLOPS, "bfloat16": BF16_PEAK_FLOPS}
 SERVE_SHAPE = (4, 1024, 12, 2, 128)         # B, S, Hq, Hkv, hd
 LONG_SHAPE = (1, 32768, 12, 2, 128)         # prefill_32k at batch 1
 
@@ -1085,16 +1102,18 @@ def _flash_oracle(q, k, v, causal, window):
                                    window=window).transpose(1, 2)
 
 
-def flash_bound_ms(shape, causal, window, elem_bytes) -> tuple[float, str]:
+def flash_bound_ms(shape, causal, window, elem_bytes,
+                   peak) -> tuple[float, str]:
     """Least time of one launch: 4 * hd FLOPs (q.k and p.v) for every
-    (query, key) pair the mask keeps, per head, over the float32 peak, vs
-    q, k, v read once and o written once over the memory rate."""
+    (query, key) pair the mask keeps, per head, over ``peak`` (FLOP/s of
+    the units the kernel runs on), vs q, k, v read once and o written
+    once over the memory rate."""
     b, s, hq, hkv, hd = shape
     qp = np.arange(s)
     hi = qp + 1 if causal else np.full(s, s)
     lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros(s, int)
     pairs = int((hi - lo).sum())
-    t_ops = 4 * b * hq * hd * pairs / FP32_PEAK_FLOPS * 1e3
+    t_ops = 4 * b * hq * hd * pairs / peak * 1e3
     t_bytes = (2 * b * s * (hq + hkv) * hd * elem_bytes
                / HBM_BYTES_PER_S * 1e3)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1121,35 +1140,38 @@ def check_flash(q, k, v, causal, window, tol, label) -> float:
 
 
 def phase_flash(dev) -> dict:
-    """Phase 6: the flash-attention kernel vs its plain version and ref.py
-    at every shape of ``FLASH_CASES``, then device times (torch.profiler)
-    at the serving shape and at S = 32,768, beside
-    ``scaled_dot_product_attention`` as the library call."""
+    """Phase 6: the flash-attention kernels vs their plain version and
+    ref.py at every case of ``FLASH_CASES``, then device times
+    (torch.profiler) of each kernel at the serving shape and at
+    S = 32,768 beside its bound, ``scaled_dot_product_attention`` as the
+    library call and, at the serving shape, the plain version."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
 
-    err = 0.0
+    t = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
     for i, (b, s, hq, hkv, hd, causal, window, dt) in enumerate(FLASH_CASES):
         q, k, v = _qkv((b, s, hq, hkv, hd), getattr(torch, dt), dev, 20 + i)
         label = (f"B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
                  f"{'causal' if causal else 'bidirectional'} window={window}"
                  f" {dt}")
-        err = max(err, check_flash(q, k, v, causal, window, FLASH_TOL[dt],
-                                   label))
+        key = "max_abs_err" + ("_bf16" if dt == "bfloat16" else "")
+        t[key] = max(t[key], check_flash(q, k, v, causal, window,
+                                         FLASH_TOL[dt], label))
 
-    t = {"max_abs_err": err}
-    name = "flash_attention_kernel"
+    f32, bf16 = FLASH_KERNELS["float32"], FLASH_KERNELS["bfloat16"]
     for key, shape, reps in (("serve", SERVE_SHAPE, 20),
                              ("long", LONG_SHAPE, 3)):
         q, k, v = _qkv(shape, torch.float32, dev, 40)
         qb, kb, vb = (x.bfloat16() for x in (q, k, v))
-        t[key] = device_ms(lambda: ops.flash_sdpa(q, k, v), reps, dev, name)
+        t[key] = device_ms(lambda: ops.flash_sdpa(q, k, v), reps, dev, f32)
         t[key + "_events"] = time_ms(lambda: ops.flash_sdpa(q, k, v), reps,
                                      dev)
         t[key + "_bf16"] = device_ms(lambda: ops.flash_sdpa(qb, kb, vb), reps,
-                                     dev, name)
+                                     dev, bf16)
+        t[key + "_bf16_events"] = time_ms(lambda: ops.flash_sdpa(qb, kb, vb),
+                                          reps, dev)
         qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
         t[key + "_sdpa_bf16"] = device_ms(
             lambda: F.scaled_dot_product_attention(
@@ -1171,8 +1193,14 @@ def phase_flash(dev) -> dict:
                     qt, kt, vt, is_causal=True, enable_gqa=True), reps, dev)
             t["serve_plain"] = device_ms(lambda: ops.flash_sdpa_plain(
                 q, k, v, scale=shape[4] ** -0.5, causal=True), 5, dev)
-        bound, by = flash_bound_ms(shape, True, 0, 4)
-        t[key + "_bound"], t[key + "_bound_by"] = bound, by
+            t["serve_plain_bf16"] = device_ms(lambda: ops.flash_sdpa_plain(
+                qb, kb, vb, scale=shape[4] ** -0.5, causal=True), 5, dev)
+        for suffix, dt, nbytes in (("", "float32", 4), ("_bf16", "bfloat16",
+                                                        2)):
+            bound, by = flash_bound_ms(shape, True, 0, nbytes,
+                                       FLASH_PEAKS[dt])
+            t[key + suffix + "_bound"] = bound
+            t[key + suffix + "_bound_by"] = by
         del q, k, v, qb, kb, vb, qt, kt, vt, ke, ve
         torch.cuda.empty_cache()
     for key, shape in (("serve", SERVE_SHAPE), ("long", LONG_SHAPE)):
@@ -1180,12 +1208,19 @@ def phase_flash(dev) -> dict:
                 f"expanded {t[key + '_sdpa_f32_expanded']:.4f} ms")
         if key == "serve":
             sdpa += (f", f32 enable_gqa {t['serve_sdpa_f32']:.4f} ms; plain "
-                     f"version {t['serve_plain']:.4f} ms")
+                     f"version f32 {t['serve_plain']:.4f} ms, bf16 "
+                     f"{t['serve_plain_bf16']:.4f} ms")
         print(f"[time] flash B={shape[0]} S={shape[1]} Hq=12 Hkv=2 hd=128 "
               f"causal: kernel f32 {t[key]:.4f} ms (CUDA events "
-              f"{t[key + '_events']:.4f} ms), bf16 "
-              f"{t[key + '_bf16']:.4f} ms; bound {t[key + '_bound']:.4f} ms "
-              f"({t[key + '_bound_by']}, f32); {sdpa}; device time")
+              f"{t[key + '_events']:.4f} ms; bound "
+              f"{t[key + '_bound']:.4f} ms, {t[key + '_bound_by']}, "
+              f"{t[key + '_bound'] / t[key]:.3f} of it), bf16 "
+              f"{t[key + '_bf16']:.4f} ms (CUDA events "
+              f"{t[key + '_bf16_events']:.4f} ms; bound "
+              f"{t[key + '_bf16_bound']:.4f} ms, "
+              f"{t[key + '_bf16_bound_by']}, "
+              f"{t[key + '_bf16_bound'] / t[key + '_bf16']:.3f} of it); "
+              f"{sdpa}; device time")
     return t
 
 
@@ -1274,10 +1309,11 @@ def phase_serve(dev) -> dict:
     cache_len = SERVE["prompt_len"] + SERVE["gen_len"]
     lm_prefill(params, arch, batch0, cache_len, dtype=torch.float32)
     torch.cuda.synchronize()
+    f32 = FLASH_KERNELS["float32"]
     prof, wall = profiled(lambda: lm_prefill(
-        params, arch, batch0, cache_len, dtype=torch.float32),
-        "flash_attention_kernel", arch.n_layers)
-    k_us, k_n = _device_activity(prof, "flash_attention_kernel")
+        params, arch, batch0, cache_len, dtype=torch.float32), f32,
+        arch.n_layers)
+    k_us, k_n = _device_activity(prof, f32)
     all_us, _ = _device_activity(prof)
     print(f"[serve] one prefill under the profiler: wall {wall:.4f} s, "
           f"device {all_us / 1e3:.3f} ms, of which {k_n} flash launches "
@@ -1313,7 +1349,67 @@ def phase_serve(dev) -> dict:
                      + (f"part at near-ties {parted}" if parted
                         else "identical"))
     print(f"[serve] flash vs chunked plain attention: {'; '.join(notes)}")
-    return dict(launches=n_launch, max_abs_err=err, kernel_ms=k_us / 1e3)
+    bf16 = bf16_prefill(params, arch, batch0, cache_len)
+    return dict(launches=n_launch, max_abs_err=err, kernel_ms=k_us / 1e3,
+                bf16_launches=bf16)
+
+
+def bf16_prefill(params, arch, batch, cache_len) -> int:
+    """One full-width prefill in bfloat16 (``lm_prefill``'s own default
+    type) through the tensor-core kernel, its launch count set to 0 just
+    before and read just after (one a layer wanted); its wall and, under
+    the profiler, the kernel's share of the device time; its logits
+    against the same prefill through the chunked plain attention within
+    2e-2 x max |logit| (the bf16 bar of FLASH_TOL), each row's argmax
+    equal unless the plain run's two logits lie within that bar.  Returns
+    the launch count."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm_prefill
+
+    lm_prefill(params, arch, batch, cache_len)          # warm-up
+    torch.cuda.synchronize()
+    ops.launches = 0
+    t0 = time.perf_counter()
+    got, _ = lm_prefill(params, arch, batch, cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_launch = ops.launches
+    check(n_launch == arch.n_layers,
+          f"serve bf16: {n_launch} flash launches in a prefill, want "
+          f"{arch.n_layers}")
+    name = FLASH_KERNELS["bfloat16"]
+    prof, p_wall = profiled(lambda: lm_prefill(params, arch, batch,
+                                               cache_len), name,
+                            arch.n_layers)
+    k_us, k_n = _device_activity(prof, name)
+    all_us, _ = _device_activity(prof)
+    want, _ = lm_prefill(params, dataclasses.replace(
+        arch, use_flash_attention=False), batch, cache_len)
+    d, big = _max_abs(got, want), float(want.abs().max())
+    bar = FLASH_TOL["bfloat16"] * big
+    check(bool(got.isfinite().all()) and d <= bar,
+          f"serve bf16: prefill logits differ by {d:.3g} > 2e-2 x {big:.3g}")
+    ta, tb = got.argmax(-1), want.argmax(-1)
+    parted = []
+    for row in torch.nonzero(ta != tb).flatten().tolist():
+        gap = abs(float(want[row, ta[row]]) - float(want[row, tb[row]]))
+        check(gap <= bar, f"serve bf16: row {row} argmax {int(ta[row])} vs "
+                          f"{int(tb[row])}, {gap:.3g} apart: not a near-tie")
+        parted.append(row)
+    print(f"[serve] qwen2-1.5b bf16 prefill B={batch['tokens'].shape[0]} "
+          f"prompt {batch['tokens'].shape[1]}: flash launches {n_launch} "
+          f"(want {arch.n_layers}); wall {wall:.4f} s; under the profiler "
+          f"wall {p_wall:.4f} s, device {all_us / 1e3:.3f} ms, of which "
+          f"{k_n} flash launches {k_us / 1e3:.3f} ms "
+          f"({k_us / max(all_us, 1e-9):.3f} of it); vs chunked plain "
+          f"attention: max |logit diff| {d:.3g} (max |logit| {big:.3g}), "
+          f"argmax " + (f"parts at near-ties in rows {parted}" if parted
+                        else "identical"))
+    return n_launch
 
 
 def card_line() -> str:
@@ -1399,7 +1495,16 @@ def main() -> None:
         "max_abs_err": max(ft["max_abs_err"], served["max_abs_err"]),
         "ms": ft["serve"], "plain_ms": ft["serve_plain"],
         "bound_ms": ft["serve_bound"], "bound_by": ft["serve_bound_by"],
-        "library_ms": ft["serve_sdpa_f32"]}]}))
+        "library_ms": ft["serve_sdpa_f32"]}, {
+        "name": "flash_attention_bf16", "route": "cuda",
+        "source": f"{kernels_dir}/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
+        "launches": served["bf16_launches"],
+        "max_abs_err": ft["max_abs_err_bf16"],
+        "ms": ft["serve_bf16"], "plain_ms": ft["serve_plain_bf16"],
+        "bound_ms": ft["serve_bf16_bound"],
+        "bound_by": ft["serve_bf16_bound_by"],
+        "library_ms": ft["serve_sdpa_bf16"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,8 @@ Each kernel package names its library here as a :class:`Library`: the
 types of its C entry points.  A library is compiled at first use for
 ``sm_90a`` into a shared object with a plain C interface, in
 ``build/repro_torch/`` at the repository root, under a name keyed by a
-hash of its sources, the shared headers of ``kernels/csrc/`` and the
-flags, so an edited source builds anew and an unchanged one is loaded as
+hash of its sources, the shared headers of ``kernels/csrc/``, the
+common flags and its own (a library, an include path), so an edited source builds anew and an unchanged one is loaded as
 it is.  Nothing here runs at import time: the CPU tests import the
 kernel modules on machines without ``nvcc``.
 """
@@ -52,15 +52,17 @@ class Library:
     ``sources[0]`` is the file handed to ``nvcc``; the rest are the
     package's headers, hashed with it.  ``signatures`` maps each C entry
     point to its ``ctypes`` argument types (every entry point returns a
-    ``cudaError_t`` as ``int``)."""
+    ``cudaError_t`` as ``int``).  ``flags`` are this library's extra
+    ``nvcc`` flags, after the common ones (e.g. ``-lcuda``)."""
 
     name: str
     csrc: Path
     sources: tuple[str, ...]
     signatures: dict = dataclasses.field(hash=False, compare=False)
+    flags: tuple[str, ...] = ()
 
     def path(self) -> Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + self.flags).encode())
         files = [self.csrc / s for s in self.sources] + sorted(
             SHARED.glob("*.cuh"))
         for f in files:
@@ -82,7 +84,7 @@ class Library:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
         cmd = [nvcc(), *NVCC_FLAGS, "-I", str(SHARED), "-o", tmp,
-               str(self.csrc / self.sources[0])]
+               str(self.csrc / self.sources[0]), *self.flags]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)

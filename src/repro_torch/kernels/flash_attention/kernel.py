@@ -1,6 +1,8 @@
-"""Build and bind the CUDA flash-attention kernel
+"""Build and bind the CUDA flash-attention kernels
 (``csrc/flash_attention.cu``) through the port's shared build module
-(:mod:`repro_torch.kernels._build`).  Nothing here runs at import time."""
+(:mod:`repro_torch.kernels._build`), linked with ``libcuda`` for
+``cuTensorMapEncodeTiled`` (the bf16 kernel's TMA tensor maps).  Nothing
+here runs at import time."""
 from __future__ import annotations
 
 import ctypes
@@ -16,4 +18,4 @@ LIBRARY = Library("flash_attention", Path(__file__).resolve().with_name("csrc"),
                       "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I,
                                               _I, _I, ctypes.c_float, _I, _I,
                                               _P),
-                  })
+                  }, flags=("-lcuda",))

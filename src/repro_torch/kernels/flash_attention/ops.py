@@ -9,12 +9,19 @@ head h reading KV head ``h // (Hq // Hkv)``, under the causal mask
 masked, so no padding enters the softmax (the reference wrapper pads K/V
 with zeros and leaves them unmasked when ``causal=False``).
 
+For bfloat16 inputs the probabilities are rounded to bfloat16 before
+P·V, as the TPU kernel rounds them to V's type
+(``repro/kernels/flash_attention/kernel.py:59-60``); float32 keeps them
+in float32.
+
 Where the tensors live decides how it runs.  On CUDA tensors the wrapper
-launches ``flash_attention_kernel`` (``csrc/flash_attention.cu``) or
-raises; on CPU tensors it runs :func:`flash_sdpa_plain`, the kernel's
-blockwise online softmax with the same tiles, masks and skipped tiles in
-PyTorch.  No path falls back from one to the other.  ``launches`` counts
-the kernel's launches.
+launches ``flash_attention_f32_kernel`` (CUDA cores, 128 query rows by
+64 keys) or ``flash_attention_bf16_kernel`` (wgmma tensor cores fed by
+TMA, 128 x 128 tiles) from ``csrc/flash_attention.cu``, or raises; on CPU tensors it
+runs :func:`flash_sdpa_plain`, the kernels' blockwise online softmax with
+the same tiles, masks, skipped tiles and rounding of P in PyTorch.  No
+path falls back from one to the other.  ``launches`` counts the kernels'
+launches.
 """
 from __future__ import annotations
 
@@ -22,40 +29,48 @@ import torch
 
 launches = 0
 
-BLOCK_Q = 64          # query rows per thread block (csrc kBQ)
-BLOCK_K = 64          # keys per K/V tile (csrc kBK)
+# query rows per thread block and keys per K/V tile, by input type (csrc
+# simt::kBQ/kBK for float32, tc::kBQ/kBK for bfloat16)
+BLOCK_Q = {torch.float32: 128, torch.bfloat16: 128}
+BLOCK_K = {torch.float32: 64, torch.bfloat16: 128}
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def key_range(q0: int, s: int, causal: bool, window: int) -> range:
-    """Starts of the K/V tiles that the q tile starting at ``q0`` can see;
-    tiles wholly above the causal diagonal or before the window are
-    skipped."""
-    end = min(s, q0 + BLOCK_Q) if causal else s
+def key_range(q0: int, s: int, causal: bool, window: int,
+              dtype: torch.dtype = torch.float32) -> range:
+    """Starts of the K/V tiles that the q tile starting at ``q0`` can see,
+    in the tiles of ``dtype``'s kernel; tiles wholly above the causal
+    diagonal or before the window are skipped."""
+    bq, bk = BLOCK_Q[dtype], BLOCK_K[dtype]
+    end = min(s, q0 + bq) if causal else s
     begin = max(0, q0 - window + 1) if window > 0 else 0
-    return range(begin // BLOCK_K * BLOCK_K, end, BLOCK_K)
+    return range(begin // bk * bk, end, bk)
 
 
 def flash_sdpa_plain(q, k, v, *, scale: float, causal: bool = True,
                      window: int = 0) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: per q tile, an online softmax
-    over the K/V tiles of :func:`key_range` in float32, masked scores at
-    -inf, ``acc / max(l, 1e-30)`` at the end."""
+    """The kernels' arithmetic in PyTorch: per q tile of ``q.dtype``'s
+    kernel, an online softmax over the K/V tiles of :func:`key_range` in
+    float32, masked scores at -inf, P rounded to bfloat16 before P·V for
+    bfloat16 inputs (the sum l is taken before the rounding), and
+    ``acc / max(l, 1e-30)`` at the end."""
     b, s, hq, hd = q.shape
+    bq, bk = BLOCK_Q[q.dtype], BLOCK_K[q.dtype]
+    rounded = q.dtype == torch.bfloat16
     g = hq // k.shape[2]
     qf = q.float().transpose(1, 2)                          # (B, Hq, S, hd)
     kf = k.float().transpose(1, 2).repeat_interleave(g, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(g, dim=1)
     out = torch.empty_like(qf)
-    for q0 in range(0, s, BLOCK_Q):
-        qb = qf[:, :, q0:q0 + BLOCK_Q]
-        qp = torch.arange(q0, min(q0 + BLOCK_Q, s), device=q.device)[:, None]
+    for q0 in range(0, s, bq):
+        qb = qf[:, :, q0:q0 + bq]
+        qp = torch.arange(q0, min(q0 + bq, s), device=q.device)[:, None]
         m = torch.full(qb.shape[:-1], float("-inf"), device=q.device)
         lsum = torch.zeros_like(m)
         acc = torch.zeros_like(qb)
-        for k0 in key_range(q0, s, causal, window):
-            kb, vb = kf[:, :, k0:k0 + BLOCK_K], vf[:, :, k0:k0 + BLOCK_K]
+        for k0 in key_range(q0, s, causal, window, q.dtype):
+            kb, vb = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
             kp = torch.arange(k0, k0 + kb.shape[2], device=q.device)[None, :]
             ok = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool,
                             device=q.device)
@@ -70,9 +85,11 @@ def flash_sdpa_plain(q, k, v, *, scale: float, causal: bool = True,
             alpha = torch.exp(m - m_use)
             p = torch.exp(sc - m_use[..., None])
             lsum = lsum * alpha + p.sum(-1)
+            if rounded:
+                p = p.bfloat16().float()
             acc = acc * alpha[..., None] + p @ vb
             m = m_new
-        out[:, :, q0:q0 + BLOCK_Q] = acc / lsum.clamp_min(1e-30)[..., None]
+        out[:, :, q0:q0 + bq] = acc / lsum.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -95,8 +112,8 @@ def _launch(q, k, v, scale: float, causal: bool, window: int):
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, starting on a 16-byte boundary (the kernel's vector
-    loads)."""
+    """Contiguous, starting on a 16-byte boundary (the f32 kernel's
+    cp.async, the bf16 kernel's tensor maps)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -7,17 +7,25 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention \
+    as jax_flash_attention
 from repro.kernels.flash_attention.ops import flash_sdpa as jax_flash_sdpa
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops, ref
 
-# the cases of tests/test_kernels.py::test_flash_attention_matches_oracle
+# the cases of tests/test_kernels.py::test_flash_attention_matches_oracle,
+# then the bfloat16 twins of its float32 cases (the tensor-core kernel's
+# arithmetic: 128 x 128 tiles, P rounded to bfloat16)
 KERNEL_CASES = [
     (2, 128, 4, 4, 32, True, 0, "float32"),
     (1, 256, 8, 2, 64, True, 0, "float32"),
     (2, 192, 4, 1, 32, True, 64, "float32"),     # MQA + sliding window
     (1, 128, 4, 4, 32, False, 0, "float32"),     # bidirectional
     (1, 256, 4, 2, 64, True, 0, "bfloat16"),
+    (2, 128, 4, 4, 32, True, 0, "bfloat16"),
+    (1, 256, 8, 2, 64, True, 0, "bfloat16"),
+    (2, 192, 4, 1, 32, True, 64, "bfloat16"),
+    (1, 128, 4, 4, 32, False, 0, "bfloat16"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # tests/test_kernels.py:65
 
@@ -99,10 +107,17 @@ def test_plain_matches_port_oracle(s, causal, window, hq, hkv):
 
 
 def test_key_range_skips_tiles_outside_the_mask():
-    assert list(ops.key_range(0, 1024, True, 0)) == [0]
-    assert list(ops.key_range(960, 1024, True, 0)) == list(range(0, 1024, 64))
+    """float32: 128-row q tiles over 64-key tiles; bfloat16: 128 x 128."""
+    assert list(ops.key_range(0, 1024, True, 0)) == [0, 64]
+    assert list(ops.key_range(896, 1024, True, 0)) == list(range(0, 1024, 64))
     assert list(ops.key_range(960, 1024, True, 100)) == [832, 896, 960]
     assert list(ops.key_range(0, 100, False, 0)) == [0, 64]
+    bf16 = torch.bfloat16
+    assert list(ops.key_range(0, 1024, True, 0, bf16)) == [0]
+    assert list(ops.key_range(896, 1024, True, 0, bf16)) == list(
+        range(0, 1024, 128))
+    assert list(ops.key_range(896, 1024, True, 100, bf16)) == [768, 896]
+    assert list(ops.key_range(0, 100, False, 0, bf16)) == [0]
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "gqa", "shape",
@@ -126,11 +141,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_bf16_output_keeps_its_type_and_rounds_once():
-    """bfloat16 inputs are widened, computed in float32 and rounded once:
-    the result is the float32 computation on the widened inputs, rounded."""
+    """bfloat16 inputs: P is rounded to bfloat16 before P·V, as the TPU
+    kernel's ``jnp.dot(p.astype(v.dtype), v)`` (kernel.py:59-60), while l
+    sums the float32 P; the float32 result is rounded once at the end.
+    S = 96 is one 128-key tile, so the online softmax is one step."""
     tq, tk, tv = (torch.as_tensor(a).bfloat16()
                   for a in _inputs(3, 1, 96, 4, 2, 32))
     got = ops.flash_sdpa(tq, tk, tv)
-    want = ops.flash_sdpa(tq.float(), tk.float(), tv.float()).bfloat16()
     assert got.dtype == torch.bfloat16
-    assert torch.equal(got, want)
+    q, k, v = (t.float().transpose(1, 2) for t in (tq, tk, tv))
+    k, v = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+    sc = (q @ k.transpose(-1, -2)) * 32 ** -0.5
+    sc = sc.masked_fill(~torch.ones(96, 96, dtype=torch.bool).tril(),
+                        float("-inf"))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    want = (p.bfloat16().float() @ v) / p.sum(-1, keepdim=True)
+    assert torch.equal(got, want.transpose(1, 2).bfloat16())
+    unrounded = (p @ v) / p.sum(-1, keepdim=True)
+    assert not torch.equal(got, unrounded.transpose(1, 2).bfloat16())
+
+
+def test_bf16_plain_matches_the_jax_kernel():
+    """The bfloat16 plain version against the TPU kernel itself
+    (``flash_attention``, 128-tiles, interpret mode) at (1, 256, 4, 2, 64)
+    causal: the same tiles and the same rounding of P, so the two differ
+    only by the order of float32 sums, well within 0.0039 (one bfloat16
+    step at the outputs' size, the distance of 64-tiles)."""
+    q, k, v = _inputs(0, 1, 256, 4, 2, 64)
+    jq, jk, jv = (jnp.asarray(np.moveaxis(a, 1, 2)).astype(jnp.bfloat16)
+                  for a in (q, k, v))
+    want = _np(jnp.moveaxis(jax_flash_attention(jq, jk, jv, causal=True),
+                            2, 1))
+    tq, tk, tv = (torch.as_tensor(a).bfloat16() for a in (q, k, v))
+    got = _np(ops.flash_sdpa(tq, tk, tv, causal=True))
+    assert np.abs(got - want).max() <= 0.0039

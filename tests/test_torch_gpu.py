@@ -242,6 +242,41 @@ def test_flash_kernel_takes_strided_inputs(cuda):
     assert float((got - want).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("hd", flash.HEAD_DIMS)
+@pytest.mark.parametrize("s,hkv,window", [(300, 2, 0), (300, 1, 64),
+                                          (77, 4, 0)])
+def test_flash_bf16_kernel_matches_plain_version(cuda, hd, s, hkv, window):
+    """The tensor-core kernel at every head dim, at S that is no multiple
+    of its 128-row tiles, with a window and MQA: within 2e-2 of the plain
+    version (P rounded to bf16 on both sides) and of ref.py."""
+    g = torch.Generator(device=cuda).manual_seed(hd + s)
+    q, k, v = (torch.randn(2, s, h, hd, generator=g, device=cuda).bfloat16()
+               for h in (4, hkv, hkv))
+    before = flash.launches
+    got = flash.flash_sdpa(q, k, v, causal=True, window=window)
+    assert flash.launches == before + 1 and got.dtype == torch.bfloat16
+    plain = flash.flash_sdpa_plain(q, k, v, scale=hd ** -0.5, causal=True,
+                                   window=window)
+    oracle = flash_ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=window).transpose(1, 2)
+    for want in (plain, oracle):
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+def test_flash_bf16_kernel_takes_strided_inputs(cuda):
+    """A transposed bf16 view is made contiguous by the wrapper before its
+    tensor maps are encoded, not misread."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(2, 4, 200, 64, generator=g,
+                    device=cuda).bfloat16().transpose(1, 2)
+    k = torch.randn(2, 2, 200, 64, generator=g,
+                    device=cuda).bfloat16().transpose(1, 2)
+    got = flash.flash_sdpa(q, k, k)
+    want = flash.flash_sdpa_plain(q, k, k, scale=64 ** -0.5)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
 def test_lm_prefill_routes_every_layer_through_the_kernel(cuda):
     """reduced(qwen2-1.5b) at S = 160: one launch per layer, and the same
     logits as the chunked plain attention on the card."""
