@@ -10,21 +10,27 @@ Phases (any failure exits non-zero; none is caught):
              (popstep, graycode, fixedpoint, popmin, flash_attention)
              with nvcc for sm_90a, one nvcc each, all started together,
              and print the ptxas register/spill report;
-2. kernel  — ``population_step_ids`` through the CUDA kernels vs their
-             plain PyTorch version on the same CUDA tensors, for the nine
-             registry objectives at their registry encodings (the
-             remote-sensing MLP is the full 680-variable, 5,439-child
-             step) and for rastrigin n=9 at every resolution of the
-             second main path (8..16 bits, 143..287 children), with the
-             engine's virtual blocks and as one run;
-3. fold    — the fold launch vs the plain rule on partials of every
-             main-path step's shape and on crafted partials holding
-             NaNs, ties and all-+inf blocks;
+2. kernel  — ``population_step_ids`` through the CUDA kernel (one launch
+             a step) vs its plain PyTorch version on the same CUDA
+             tensors, for the nine registry objectives at their registry
+             encodings (the remote-sensing MLP is the full 680-variable,
+             5,439-child step) and for rastrigin n=9 at every resolution
+             of the second main path (8..16 bits, 143..287 children),
+             with the engine's virtual blocks and as one run: the winner,
+             every child's value from the kernel's value buffer, and, for
+             the remote-sensing MLP, those values bitwise against the
+             kernel with every hidden unit recomputed;
+3. fold    — the cross-block rule the kernel applies in its last block,
+             launched alone (``ops.fold_partials``, uncounted) vs the
+             plain rule on partials of every main-path step's shape and on
+             crafted partials holding NaNs, ties, signed zeros and
+             all-+inf blocks;
 4. main    — ``solve(remote_sensing, Distributed(inner="popstep"))`` on
              the device driver and ``solve(rastrigin n=9,
              Distributed(driver="host", max_bits=16))``, each with both
-             kernels' launch counts set to 0 before and read after; then
-             the remote-sensing solve again with ``inner="fused"`` (plain
+             launch counts set to 0 before and read after: one kernel
+             launch per DGO step and no fold launch; then the
+             remote-sensing solve again with ``inner="fused"`` (plain
              PyTorch on the card), whose history must match step for
              step unless a step's two winners are a near-tie;
 5. packed  — the packed-word kernels vs their plain versions, bitwise:
@@ -67,10 +73,10 @@ Phases (any failure exits non-zero; none is caught):
              near-ties.
 
 The last lines are the card's name and power limit, a JSON line with
-every kernel's measurements (``popstep`` — the partials launch —,
-``popstep_fold``, ``graycode``, ``fixedpoint``, ``popmin`` — its
-partials launch —, ``popmin_fold``, ``flash_attention`` — f32 — and
-``flash_attention_bf16``), and
+every kernel's measurements (``popstep``, ``popstep_fold`` — merged into
+``popstep``'s launch, timed through the check entry —, ``graycode``,
+``fixedpoint``, ``popmin`` — its partials launch —, ``popmin_fold``,
+``flash_attention`` — f32 — and ``flash_attention_bf16``), and
 ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it exits non-zero and prints no
@@ -232,8 +238,10 @@ def phase_build() -> None:
         shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
         print(f"[build] {lib.name}: {shown}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build] {line.strip()}")
+            if "Compiling entry function" in line:     # names what follows
+                print(f"[build] {line.split(chr(39))[1]}:")
+            elif "registers" in line or "spill" in line or "error" in line:
+                print(f"[build]   {line.strip()}")
         lib.load()
 
 
@@ -261,8 +269,8 @@ def _step_inputs(enc, dev):
 
 def compare_step(obj, enc, parent, dev, *, virtual_block):
     """One step through the kernel and the plain version on the same
-    tensors; returns (kernel (val, id), plain (val, id), per-child plain
-    values)."""
+    tensors; returns (kernel (val, id), plain (val, id), the kernel's
+    per-child values, the plain per-child values)."""
     from repro_torch.kernels.popstep import ops
 
     ids, valid, block = _step_inputs(enc, dev)
@@ -270,41 +278,65 @@ def compare_step(obj, enc, parent, dev, *, virtual_block):
     if not virtual_block:
         ids = ids[: enc.population]
         valid = valid[: enc.population]
-    kv, ki = ops.population_step_ids(obj, parent, ids, enc, valid=valid,
-                                     virtual_block=vb)
+    step = ops.prepare_step_ids(obj, ids, enc, valid=valid, virtual_block=vb)
+    kv, ki = step(parent)
+    # the launch's value buffer (off the card, a rehearsal: the plain values)
+    kvals = (step.values if dev.type == "cuda"
+             else ops.child_values(obj, parent, ids, enc, valid))
     pv, pi = ops.population_step_ids_plain(obj, parent, ids, enc,
                                            valid=valid, virtual_block=vb)
     vals = ops.child_values_plain(obj, parent, ids, enc, valid)
-    return (float(kv), int(ki)), (float(pv), int(pi)), vals
+    return (float(kv), int(ki)), (float(pv), int(pi)), kvals, vals
 
 
 def time_step(obj, enc, parent, dev, reps: int = 20):
-    """(partials launch device ms, fold launch device ms, wrapper-call
-    ms, plain-version device ms) of one engine-shaped step (virtual
-    blocks of the engine's plan)."""
+    """(kernel device ms, wrapper-call ms, plain-version device ms, bind
+    ms) of one engine-shaped step (virtual blocks of the engine's plan);
+    binding the step (``prepare_step_ids``, host work and its device
+    copies) is timed on the host clock, from one synchronize to the
+    next."""
+    import torch
+
     from repro_torch.kernels.popstep import ops
 
     ids, valid, block = _step_inputs(enc, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
     step = ops.prepare_step_ids(obj, ids, enc, valid=valid,
                                 virtual_block=block)
-    k_ms = device_ms(lambda: step(parent), reps, dev,
-                     name="popstep_partials")
-    f_ms = device_ms(lambda: step(parent), reps, dev, name="popstep_fold")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    b_ms = (time.perf_counter() - t0) * 1e3
+    k_ms = device_ms(lambda: step(parent), reps, dev, name="popstep_kernel")
     c_ms = time_ms(lambda: step(parent), reps, dev)
     p_ms = device_ms(lambda: ops.population_step_ids_plain(
         obj, parent, ids, enc, valid=valid, virtual_block=block), reps, dev)
-    return k_ms, f_ms, c_ms, p_ms
+    return k_ms, c_ms, p_ms, b_ms
 
 
 def check_step(label, name, obj, enc, parent, dev) -> float:
     """Kernel vs plain on one step, with the engine's virtual blocks and
-    as one run; returns the largest |error| of the step's value."""
+    as one run: the winner and every child's value (the values of masked
+    rows are +inf in both); for the remote-sensing MLP the kernel's values
+    also bitwise against the kernel with every hidden unit recomputed.
+    Returns the largest |error| of a child's value."""
+    import torch
+
+    from repro_torch.kernels.popstep import ops
+
     atol, why = long_sum_atol(name, enc)
     max_err = 0.0
     for virtual in (True, False):
-        (kv, ki), (pv, pi), vals = compare_step(obj, enc, parent, dev,
-                                                virtual_block=virtual)
-        err = abs(kv - pv)
+        (kv, ki), (pv, pi), kvals, vals = compare_step(obj, enc, parent, dev,
+                                                       virtual_block=virtual)
+        check(kvals.shape == vals.shape and bool(torch.isclose(
+            kvals, vals, rtol=RTOL, atol=atol).all()),
+              f"{label}: a child's value differs from the plain version's "
+              f"beyond the bar (atol {atol:.3g})")
+        fin = torch.isfinite(vals)
+        err = (float((kvals[fin].double() - vals[fin].double()).abs().max())
+               if bool(fin.any()) else 0.0)
         max_err = max(max_err, err)
         check(np.isclose(kv, pv, rtol=RTOL, atol=atol),
               f"{label}: kernel {kv!r} vs plain {pv!r} (atol {atol:.3g})")
@@ -315,8 +347,19 @@ def check_step(label, name, obj, enc, parent, dev) -> float:
                   f"({b!r}) is not a near-tie")
         mode = "virtual blocks" if virtual else "one run"
         print(f"[kernel] {label:<22} pop {enc.population:>5} {mode:<14} "
-              f"kernel ({kv:.7g}, {ki}) plain ({pv:.7g}, {pi}) "
-              f"|err| {err:.3g}" + (f"  [{why}]" if why else ""))
+              f"kernel ({kv:.7g}, {ki}) plain ({pv:.7g}, {pi}); "
+              f"{kvals.shape[0]} child values, max |err| {err:.3g}"
+              + (f"  [{why}]" if why else ""))
+    if name == "remote_sensing":
+        ids, valid, _ = _step_inputs(enc, dev)
+        reused = ops.child_values(obj, parent, ids, enc, valid)
+        full = ops.child_values(obj, parent, ids, enc, valid, reuse=False)
+        same = torch.equal(reused.view(torch.int32), full.view(torch.int32))
+        check(same, f"{label}: reusing the parent's hidden units changed a "
+                    f"child's value")
+        print(f"[kernel] {label:<22} {ids.shape[0]} child values with the "
+              f"parent's hidden units reused == every unit recomputed, "
+              f"bitwise")
     return max_err
 
 
@@ -338,14 +381,14 @@ def phase_kernel_vs_plain(dev) -> dict:
         parent = torch.as_tensor(
             rng.integers(0, 2, enc.n_bits).astype(np.int8), device=dev)
         max_err = max(max_err, check_step(name, name, obj, enc, parent, dev))
-        k_ms, f_ms, c_ms, p_ms = time_step(obj, enc, parent, dev)
-        print(f"[time] {name:<15} partials {k_ms:.4f} ms, fold {f_ms:.4f} "
-              f"ms (device), wrapper call {c_ms:.4f} ms (CUDA events), "
-              f"plain {p_ms:.4f} ms (device)")
+        k_ms, c_ms, p_ms, b_ms = time_step(obj, enc, parent, dev)
+        print(f"[time] {name:<15} kernel {k_ms:.4f} ms (device), wrapper "
+              f"call {c_ms:.4f} ms (CUDA events), plain {p_ms:.4f} ms "
+              f"(device); binding the step {b_ms:.3f} ms (host)")
         if name == "remote_sensing":
-            ids, valid, _ = _step_inputs(enc, dev)
-            rs = dict(obj=obj, enc=enc, n_live=int(valid.sum()),
-                      n_rows=ids.shape[0], ms=k_ms, fold_in_step_ms=f_ms,
+            ids, valid, block = _step_inputs(enc, dev)
+            rs = dict(obj=obj, enc=enc, ids=ids, valid=valid, block=block,
+                      n_live=int(valid.sum()), n_rows=ids.shape[0], ms=k_ms,
                       plain_ms=p_ms)
     rast = objectives.get("rastrigin", n=9)
     for b in RAST_SCHEDULE:
@@ -355,33 +398,53 @@ def phase_kernel_vs_plain(dev) -> dict:
         max_err = max(max_err, check_step(f"rastrigin n=9 {b} bits",
                                           "rastrigin", rast, enc_b, parent,
                                           dev))
-    k_ms, f_ms, c_ms, p_ms = time_step(rast, enc_b, parent, dev)
-    print(f"[time] rastrigin n=9 16 bits (pop {enc_b.population}) partials "
-          f"{k_ms:.4f} ms, fold {f_ms:.4f} ms (device), wrapper call "
-          f"{c_ms:.4f} ms, plain {p_ms:.4f} ms (device)")
-    rs["rastrigin_ms"] = k_ms + f_ms
+    k_ms, c_ms, p_ms, b_ms = time_step(rast, enc_b, parent, dev)
+    print(f"[time] rastrigin n=9 16 bits (pop {enc_b.population}) kernel "
+          f"{k_ms:.4f} ms (device), wrapper call {c_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms (device); binding the step {b_ms:.3f} ms (host)")
+    rs["rastrigin_ms"] = k_ms
     rs["max_abs_err"] = max_err
     return rs
 
 
 def popstep_bound_ms(rs: dict) -> tuple[float, str]:
-    """Least time for one remote-sensing step: multiply-adds (2 FLOPs
-    each) over the float32 peak vs inputs and outputs over the memory
-    rate.  Transcendentals are not counted."""
+    """Least time for one remote-sensing step: the work the step needs,
+    which counts layer 2 for every live child, layer 1 for the hidden units
+    its mask marks (the others are bitwise the parent's) and the parent's
+    layer 1 once; multiply-adds (2 FLOPs each) over the float32 peak vs
+    inputs and outputs over the memory rate.  The full work, both layers
+    for every live child, goes to ``rs["full_work_bound_ms"]``.
+    Transcendentals are not counted."""
     from repro_torch.core.objectives import RS_CLASSES, RS_HIDDEN, RS_IN
+    from repro_torch.kernels.popstep import ops
 
     enc = rs["enc"]
     m = rs["obj"].kernel.consts[0].shape[0]
+    masks = ops.hidden_unit_masks(enc.n_bits, enc.bits)
+    live = rs["ids"].cpu().numpy()[rs["valid"].cpu().numpy()]
+    units = int(((masks[live, None] >> np.arange(RS_HIDDEN)) & 1).sum())
     flops = rs["n_live"] * m * (RS_IN * RS_HIDDEN + RS_HIDDEN * RS_CLASSES) * 2
-    # parent bits, then starts/ends/ok/ids per row, the constants, and the
+    reused = (rs["n_live"] * m * RS_HIDDEN * RS_CLASSES
+              + (units + RS_HIDDEN) * m * RS_IN) * 2
+    # parent bits, then starts/ends/ok/order per row, its mask, its value
+    # written, one id read per virtual block, the constants and the
     # (value, id) written out
-    nbytes = (enc.n_bits + rs["n_rows"] * 4 * 4
+    n_vblocks = rs["n_rows"] // rs["block"]
+    nbytes = (enc.n_bits + rs["n_rows"] * (4 * 4 + 8 + 4) + 4 * n_vblocks
               + sum(c.numel() * 4 for c in rs["obj"].kernel.consts) + 8)
-    t_ops = flops / FP32_PEAK_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[kernel] remote_sensing bound: {flops / 1e9:.4f} GFLOP -> "
-          f"{t_ops * 1e3:.2f} us; {nbytes} B -> {t_bytes * 1e3:.4f} us")
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    out = []
+    for f in (flops, reused):
+        t_ops = f / FP32_PEAK_FLOPS * 1e3
+        out.append((t_ops, "operations") if t_ops >= t_bytes
+                   else (t_bytes, "bytes"))
+    rs["full_work_bound_ms"] = out[0][0]
+    print(f"[kernel] remote_sensing bound: full work {flops / 1e9:.4f} GFLOP "
+          f"-> {out[0][0] * 1e3:.2f} us; reused work {reused / 1e9:.4f} "
+          f"GFLOP ({units / max(rs['n_live'], 1):.2f} of {RS_HIDDEN} hidden "
+          f"units a child) -> {out[1][0] * 1e3:.2f} us; {nbytes} B -> "
+          f"{t_bytes * 1e3:.4f} us")
+    return out[1]
 
 
 # ---------------------------------------------------------------------------
@@ -396,26 +459,28 @@ def _same(kv, ki, rv, ri) -> bool:
         and int(ki) == int(ri)
 
 
+FOLD_CHUNK = 4      # rows a partial stands for in the crafted partials
+
+
 def main_path_partials(rng, pop: int, dev):
-    """Partials of the shape one engine step of population ``pop`` gives
-    the fold launch (its virtual blocks of chunks of ``ops.CHUNK`` rows),
+    """Partials over the virtual blocks of one engine step of population
+    ``pop`` (each partial the winner of ``FOLD_CHUNK`` rows of its block),
     with values drawn so that ties and NaNs occur and one virtual block
     is all NaN: (values, rows, ids, n_vblocks, sentinel)."""
     import torch
 
     from repro_torch.core.distributed import _shard_plan
-    from repro_torch.kernels.popstep import ops
 
     plan = _shard_plan(pop, 1, 256)
-    cpv = -(-plan.block // ops.CHUNK)
+    cpv = -(-plan.block // FOLD_CHUNK)
     vals = rng.integers(0, 40, (plan.n_blocks, cpv)).astype(np.float32)
     vals[rng.random(vals.shape) < 0.01] = np.nan
     vals[rng.random(vals.shape) < 0.05] = np.inf
     if plan.n_blocks > 1:
         vals[-1] = np.nan
     first = (np.arange(plan.n_blocks)[:, None] * plan.block
-             + np.arange(cpv)[None, :] * ops.CHUNK)
-    last = np.minimum(first + ops.CHUNK,
+             + np.arange(cpv)[None, :] * FOLD_CHUNK)
+    last = np.minimum(first + FOLD_CHUNK,
                       (np.arange(plan.n_blocks)[:, None] + 1) * plan.block)
     rows = rng.integers(first, last).astype(np.int32)
     ids = np.minimum(np.arange(plan.n_blocks * plan.block), pop - 1)
@@ -425,9 +490,10 @@ def main_path_partials(rng, pop: int, dev):
 
 
 def phase_fold(dev, rs_pop: int) -> dict:
-    """The fold launch vs the plain rule, on crafted partials and on
-    partials of every main-path step's shape; times it at the
-    remote-sensing shape."""
+    """The kernel's cross-block rule launched alone (``fold_partials``,
+    the thin kernel over the same ``fold_vblocks``) vs the plain rule, on
+    crafted partials and on partials of every main-path step's shape;
+    times it at the remote-sensing shape."""
     import torch
 
     from repro_torch.kernels.popstep import ops
@@ -569,14 +635,31 @@ def _solve_timed(problem, strategy, x0, max_iters, dev):
 
 
 def _counted_solve(problem, strategy, x0, max_iters, dev):
-    """A main-path solve with the kernels' launch counts set to 0 just
-    before it and read just after: (result, wall s, (partials launches,
-    fold launches))."""
+    """A main-path solve with the kernel's launch counts set to 0 just
+    before it and read just after, and its DGO steps counted (the calls of
+    every step the engine binds through ``ops.prepare_step_ids``):
+    (result, wall s, (launches, fold launches, steps))."""
     from repro_torch.kernels.popstep import ops
 
-    ops.launches = ops.fold_launches = 0
-    res, wall = _solve_timed(problem, strategy, x0, max_iters, dev)
-    return res, wall, (ops.launches, ops.fold_launches)
+    bind = ops.prepare_step_ids
+    steps = [0]
+
+    def counting_bind(*args, **kwargs):
+        step = bind(*args, **kwargs)
+
+        def counted(parent_bits):
+            steps[0] += 1
+            return step(parent_bits)
+        return counted
+
+    ops.prepare_step_ids = counting_bind
+    try:
+        ops.launches = ops.fold_launches = 0
+        res, wall = _solve_timed(problem, strategy, x0, max_iters, dev)
+        counts = (ops.launches, ops.fold_launches, steps[0])
+    finally:
+        ops.prepare_step_ids = bind
+    return res, wall, counts
 
 
 def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
@@ -593,19 +676,21 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
     res_ra, wall_ra, n_ra = _counted_solve(
         rast, Distributed(driver="host", max_bits=16), x0_ra, None, dev)
 
-    for label, res, wall, (n, n_fold), prob in (
+    for label, res, wall, (n, n_fold, n_steps), prob in (
             ("remote_sensing popstep device", res_rs, wall_rs, n_rs,
              rs_prob),
             ("rastrigin n=9 host 8->16 bits", res_ra, wall_ra, n_ra,
              rast)):
         best = float(res.best_f)
         print(f"[main] {label}: {res.iterations} iterations, best_f "
-              f"{best:.7g}, wall {wall:.3f} s, launches: partials {n}, "
-              f"fold {n_fold}; finite {res.extras['finite']}")
-        check(n > 0 and n_fold > 0,
-              f"{label}: a popstep kernel was never launched")
-        check(n == n_fold, f"{label}: {n} partials launches but {n_fold} "
-                           f"fold launches")
+              f"{best:.7g}, wall {wall:.3f} s, {n_steps} DGO steps, "
+              f"launches: popstep {n}, fold alone {n_fold}; finite "
+              f"{res.extras['finite']}")
+        check(n > 0, f"{label}: the popstep kernel was never launched")
+        check(n == n_steps, f"{label}: {n} popstep launches for {n_steps} "
+                            f"DGO steps (one each wanted)")
+        check(n_fold == 0, f"{label}: the fold was launched on its own "
+                           f"{n_fold} times")
         check(res.extras["finite"] and np.isfinite(best),
               f"{label}: non-finite result")
         check(res.trace.shape == (res.iterations + 1,),
@@ -630,13 +715,22 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
                 rs_prob, Distributed(inner="popstep"), x0_rs, 64, dev)
         busy_us, n_acts = _device_activity(prof)
         busy = busy_us / 1e6
+        # on the card itself: the step kernel ran, the fold kernel did not
+        _, n_step_dev = _device_activity(prof, "popstep_kernel")
+        _, n_fold_dev = _device_activity(prof, "popstep_fold")
         print(f"[main] remote_sensing repeated under the profiler: wall "
               f"{wall_prof:.4f} s, device busy {busy:.4f} s, idle share "
               f"{1 - busy / wall_prof:.3f}, {n_acts} device activities "
-              f"({n_acts / max(res_prof.iterations, 1):.1f} per step)")
+              f"({n_acts / max(res_prof.iterations, 1):.1f} per step); "
+              f"recorded launches: popstep_kernel {n_step_dev}, "
+              f"popstep_fold_kernel {n_fold_dev}")
+        check(n_step_dev > 0, "the profiler recorded no popstep_kernel "
+                              "launch in the repeated solve")
+        check(n_fold_dev == 0, f"the repeated solve launched "
+                               f"popstep_fold_kernel {n_fold_dev} times")
     print(f"[main] rastrigin n=9 kernel time per step {rast_ms:.4f} ms at "
-          f"16 bits (device, phase 2; partials and fold); solve wall per "
-          f"step {wall_ra / max(n_ra[0], 1) * 1e3:.3f} ms")
+          f"16 bits (device, phase 2); solve wall per step "
+          f"{wall_ra / max(n_ra[0], 1) * 1e3:.3f} ms")
     check(res_ra.extras["schedule"] == (8, 10, 12, 14, 16),
           f"rastrigin schedule {res_ra.extras['schedule']}")
 
@@ -1438,8 +1532,7 @@ def main() -> None:
     bound_ms, bound_by = popstep_bound_ms(rs)
     fold = phase_fold(dev, rs["enc"].population)
     fold_bound, fold_by = fold_bound_ms(fold)
-    n_partials, n_fold = phase_main_path(dev, rs["ms"] + rs["fold_in_step_ms"],
-                                         rs["rastrigin_ms"])
+    n_launch, n_fold = phase_main_path(dev, rs["ms"], rs["rastrigin_ms"])
     errs, pt, packed = phase_packed(dev)
     ft = phase_flash(dev)
     served = phase_serve(dev)
@@ -1459,19 +1552,24 @@ def main() -> None:
     kernels_dir = "src/repro_torch/kernels"
     # no single PyTorch call computes popstep, its fold, graycode or
     # fixedpoint (library_ms null); popstep's plain_ms is the plain step,
-    # values and selection together; popmin's library call is
-    # torch.min(vals, dim=0), at P = 5,439
+    # values and selection together, its bound_ms the work the step needs
+    # (every unit recomputed: full_work_bound_ms); popstep_fold runs inside
+    # the popstep launch on the main path (0 launches of its own), its ms
+    # is the check entry's; popmin's library call is torch.min(vals,
+    # dim=0), at P = 5,439
     print(json.dumps({"kernels": [{
         "name": "popstep", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:172",
-        "launches": n_partials, "max_abs_err": rs["max_abs_err"],
+        "launches": n_launch, "max_abs_err": rs["max_abs_err"],
         "ms": rs["ms"], "plain_ms": rs["plain_ms"], "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
+        "bound_by": bound_by, "library_ms": None,
+        "full_work_bound_ms": rs["full_work_bound_ms"]}, {
         "name": "popstep_fold", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:110",
         "launches": n_fold, "max_abs_err": fold["max_abs_err"],
         "ms": fold["ms"], "plain_ms": fold["plain_ms"],
-        "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": None},
+        "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": None,
+        "merged_into": "popstep"},
         packed_entry("graycode", f"{kernels_dir}/graycode/csrc/graycode.cu",
                      "src/repro/kernels/graycode/kernel.py:74",
                      errs["graycode"], pt["graycode"], pt["graycode_plain"]),

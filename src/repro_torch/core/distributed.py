@@ -19,7 +19,7 @@ Selection, exactly as the reference engine does it:
   the host), and ``improved = winner < parent``.
 
 Inners (``inner=``): ``"popstep"`` runs the whole population through the
-CUDA popstep kernel (one launch pair per step; its plain version on the
+CUDA popstep kernel (one launch per step; its plain version on the
 CPU), ``"fused"`` generates children by the hoisted XOR patterns and
 decodes with one matmul, ``"jnp"`` keeps the literal generate -> decode
 pipeline (the reference's name for it).  ``inner=None`` is ``"popstep"``
@@ -50,7 +50,9 @@ import torch
 
 from repro_torch.core.encoding import Encoding, _f32, decode, encode
 from repro_torch.core.population import generate_children, table_on
-from repro_torch.kernels.popstep.ops import prepare_step_ids
+# the module, not its function: importing the wrapper first imports this
+# module while the wrapper is still half-initialised
+from repro_torch.kernels.popstep import ops as popstep_ops
 
 _INNERS = ("fused", "popstep", "jnp")
 
@@ -161,9 +163,10 @@ def _build_shard_step(objective, enc: Encoding, plan: _ShardPlan,
     valid = ids < pop
     ids_c = ids.clamp(max=pop - 1)
     pat = table_on("patterns", enc.n_bits, device)          # (2N-1, N) int8
-    if inner == "popstep":           # partials + fold launch per step
-        popstep = prepare_step_ids(objective, ids_c, enc, valid=valid,
-                                   virtual_block=block)
+    if inner == "popstep":           # one kernel launch per step
+        popstep = popstep_ops.prepare_step_ids(objective, ids_c, enc,
+                                               valid=valid,
+                                               virtual_block=block)
     if inner == "fused":
         wmat = torch.as_tensor(_decode_matrix(enc), device=device)
         scale, lo = _f32(enc.scale, wmat), _f32(enc.lo, wmat)

@@ -1,2 +1,2 @@
 """The fused DGO population step: generate, decode, evaluate and select
-every child of one parent in one CUDA launch pair (``csrc/popstep.cu``)."""
+every child of one parent in one CUDA launch (``csrc/popstep.cu``)."""

@@ -8,7 +8,8 @@
 // where or when it ran.  The ids match repro_torch/core/objectives.py
 // OBJECTIVE_IDS; each function follows that module's batched PyTorch
 // expression.  Transcendentals are the precise cosf/expf/tanhf/logf/sqrtf
-// (the library is built without --use_fast_math).
+// (the library is built without --use_fast_math).  The remote-sensing MLP
+// is evaluated by eval_reuse instead, beside the parent's hidden layer.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -191,6 +192,14 @@ struct Objective<kXor> {
 // and logits in registers; the loop runs over hidden units so that each
 // weight, read once from shared memory (a broadcast to the whole warp),
 // feeds kSpl multiply-adds.
+//
+// Hidden unit j reads only W1[:, j] and b1[j].  parent_hidden computes the
+// parent's units once per thread block; eval_reuse recomputes the units
+// that ``mask`` marks (bit j) and reads the parent's for the rest.  Both
+// go through hidden(), so an unmarked unit is bitwise what recomputing it
+// would give, and the logits add the units in the order j = 0..41 either
+// way: every child's value is bitwise that of a full evaluation (mask all
+// ones).
 template <>
 struct Objective<kRemoteSensing> {
   static constexpr int kIn = 7, kHidden = 42, kClasses = 8, kSpl = 4;
@@ -198,10 +207,89 @@ struct Objective<kRemoteSensing> {
   static constexpr int kW2 = kB1 + kHidden;
   static constexpr int kB2 = kW2 + kHidden * kClasses;
 
-  __device__ static float eval(const float* w, int, const ObjParams& p,
-                               int lane) {
+  // A pass takes 32 * kSpl samples: lane l holds samples l + 32 t.
+  static constexpr int kPass = 32 * kSpl;
+
+  __host__ __device__ static constexpr int slots(int m) {
+    return kPass * ((m + kPass - 1) / kPass);
+  }
+
+  // Shared-memory floats of a block's data: the parent's hidden layer
+  // (per pass, unit and lane, the lane's kSpl samples side by side: one
+  // 16-byte load), then the samples (kIn x m) and the one-hot labels
+  // (kClasses x m), both transposed so that lanes on consecutive samples
+  // read consecutive words; rounded up so that what follows stays 16-byte
+  // aligned.
+  __host__ __device__ static constexpr int smem_floats(int m) {
+    return (kHidden * slots(m) + (kIn + kClasses) * m + 3) / 4 * 4;
+  }
+
+  __device__ __forceinline__ static float hidden(const float (&x)[kIn],
+                                                 const float (&w1)[kIn],
+                                                 float b1) {
+    float a = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kIn; ++k) a += x[k] * w1[k];
+    return tanhf(a + b1);
+  }
+
+  // The samples and the labels into the block's data (see smem_floats).
+  // Called by every thread of the block; unrolled, so that a thread's
+  // loads are in flight together.
+  __device__ static void stage(const ObjParams& p, float* d) {
+    float* xs = d + kHidden * slots(p.m);
+    float* ys = xs + kIn * p.m;
+#pragma unroll 8
+    for (int i = threadIdx.x; i < kIn * p.m; i += blockDim.x)
+      xs[(i % kIn) * p.m + i / kIn] = p.c0[i];
+#pragma unroll 8
+    for (int i = threadIdx.x; i < kClasses * p.m; i += blockDim.x)
+      ys[(i % kClasses) * p.m + i / kClasses] = p.c1[i];
+  }
+
+  // The parent's hidden layer from its point ``w`` and the staged
+  // samples.  Called by every thread of the block.  Each thread takes one
+  // sample slot and a group of units, so that it loads the sample's inputs
+  // once and a warp's stores of a unit are consecutive words (slot r of a
+  // pass is lane r / kSpl, sample r % kSpl).
+  __device__ static void parent_hidden(const float* w, const ObjParams& p,
+                                       float* d) {
+    const int n_slots = slots(p.m);
+    float* hp = d;
+    const float* xs = d + kHidden * n_slots;
+    const int groups = max(1, static_cast<int>(blockDim.x) / n_slots);
+    const int per_group = (kHidden + groups - 1) / groups;
+    for (int i = threadIdx.x; i < n_slots * groups; i += blockDim.x) {
+      const int r = i % n_slots;
+      const int g = i / n_slots;
+      const int q = r / kPass;
+      const int lane = r % kPass / kSpl, t = r % kSpl;
+      const int s = q * kPass + 32 * t + lane;
+      if (s >= p.m) continue;
+      float x[kIn];
+#pragma unroll
+      for (int k = 0; k < kIn; ++k) x[k] = xs[k * p.m + s];
+      const int j_end = min(kHidden, (g + 1) * per_group);
+#pragma unroll 2
+      for (int j = g * per_group; j < j_end; ++j) {
+        float w1[kIn];
+#pragma unroll
+        for (int k = 0; k < kIn; ++k) w1[k] = w[k * kHidden + j];
+        hp[((q * kHidden + j) * 32 + lane) * kSpl + t] =
+            hidden(x, w1, w[kB1 + j]);
+      }
+    }
+  }
+
+  __device__ static float eval_reuse(const float* w, const ObjParams& p,
+                                     int lane, const float* d,
+                                     unsigned long long mask) {
+    static_assert(kSpl == 4, "a lane's parent units are one float4");
+    const float4* hp = reinterpret_cast<const float4*>(d);
+    const float* xs = d + kHidden * slots(p.m);
+    const float* ys = xs + kIn * p.m;
     float total = 0.0f;
-    for (int base = 0; base < p.m; base += 32 * kSpl) {
+    for (int base = 0; base < p.m; base += kPass) {
       float xin[kSpl][kIn];
       float lg[kSpl][kClasses];
 #pragma unroll
@@ -210,26 +298,35 @@ struct Objective<kRemoteSensing> {
         const bool live = s < p.m;
 #pragma unroll
         for (int k = 0; k < kIn; ++k)
-          xin[t][k] = live ? p.c0[s * kIn + k] : 0.0f;
+          xin[t][k] = live ? xs[k * p.m + s] : 0.0f;
 #pragma unroll
         for (int c = 0; c < kClasses; ++c) lg[t][c] = 0.0f;
       }
-      for (int j = 0; j < kHidden; ++j) {
-        float w1[kIn], w2[kClasses];
+      // this lane's samples of unit 0 of the parent's hidden layer (a dead
+      // sample past m reads a word never written: its logits are not used)
+      const float4* hpl = hp + base / kPass * kHidden * 32 + lane;
+#pragma unroll 2
+      for (int j = 0; j < kHidden; ++j, hpl += 32) {
+        // W2[j, :] in two 16-byte loads (the child point is 16-byte
+        // aligned and 680 floats long)
+        const float4* w2v = reinterpret_cast<const float4*>(w + kW2) + 2 * j;
+        const float4 lo4 = w2v[0], hi4 = w2v[1];
+        const float w2[kClasses] = {lo4.x, lo4.y, lo4.z, lo4.w,
+                                    hi4.x, hi4.y, hi4.z, hi4.w};
+        const float4 hv = *hpl;
+        float h[kSpl] = {hv.x, hv.y, hv.z, hv.w};
+        if ((mask >> j) & 1ull) {       // uniform across the warp
+          float w1[kIn];
 #pragma unroll
-        for (int k = 0; k < kIn; ++k) w1[k] = w[k * kHidden + j];
+          for (int k = 0; k < kIn; ++k) w1[k] = w[k * kHidden + j];
+          const float b1 = w[kB1 + j];
 #pragma unroll
-        for (int c = 0; c < kClasses; ++c) w2[c] = w[kW2 + j * kClasses + c];
-        const float b1 = w[kB1 + j];
-#pragma unroll
-        for (int t = 0; t < kSpl; ++t) {
-          float a = 0.0f;
-#pragma unroll
-          for (int k = 0; k < kIn; ++k) a += xin[t][k] * w1[k];
-          const float h = tanhf(a + b1);
-#pragma unroll
-          for (int c = 0; c < kClasses; ++c) lg[t][c] += h * w2[c];
+          for (int t = 0; t < kSpl; ++t) h[t] = hidden(xin[t], w1, b1);
         }
+#pragma unroll
+        for (int t = 0; t < kSpl; ++t)
+#pragma unroll
+          for (int c = 0; c < kClasses; ++c) lg[t][c] += h[t] * w2[c];
       }
 #pragma unroll
       for (int t = 0; t < kSpl; ++t) {
@@ -248,7 +345,7 @@ struct Objective<kRemoteSensing> {
         float loss = 0.0f;
 #pragma unroll
         for (int c = 0; c < kClasses; ++c)
-          loss -= p.c1[s * kClasses + c] * ((lg[t][c] - mx) - lse);
+          loss -= ys[c * p.m + s] * ((lg[t][c] - mx) - lse);
         total += loss;
       }
     }

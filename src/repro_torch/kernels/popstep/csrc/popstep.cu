@@ -1,6 +1,6 @@
 // popstep: one DGO population step on the card — child generation, decode,
 // objective evaluation and the (min, argmin) selection, for every child of
-// one parent, without writing a child to device memory.
+// one parent, in one launch.
 //
 // Replaces repro/kernels/popstep/kernel.py:_popstep_kernel (the Pallas TPU
 // kernel behind repro.kernels.popstep.ops.population_step_ids).  It computes
@@ -10,46 +10,63 @@
 //    parent flips binary bit j iff (j - s) is even inside [s, e), and for
 //    every j >= e iff (e - s) is odd (repro/core/population.py
 //    segment_patterns).  So each variable's child level is its parent level
-//    (read from the parent's 0/1 bit string) XOR a mask of a few shifts —
-//    no Gray round trip, no packed words, no cross-word parity scan.
+//    XOR a mask of a few shifts (dgo::child_level), and only the variables
+//    that overlap the pattern are decoded again: the rest of the child's
+//    point is the parent's.
 //  * Decode is bit-exact with the reference: lo + level * scale with the
-//    multiply and the add rounded separately (__fmul_rn / __fadd_rn; a
-//    contracted FMA differs on most lattice points).
-//  * Race-free selection.  The TPU kernel folds tiles in grid order, which
-//    Hopper does not guarantee.  Here each thread block writes one partial
-//    (value, row) for its chunk of children (chunks never straddle a virtual
-//    block) and a second launch folds the partials.  Both rules are
-//    associative and commutative, so the result does not depend on the order
-//    blocks ran in:
-//      - inside a virtual block: a NaN wins (smallest row among NaNs), else
-//        the smallest value, ties to the smallest row (jnp.argmin);
-//      - across virtual blocks: a NaN block is ignored, the rest fold
-//        lexicographically on (value, child id) from (+inf, sentinel)
-//        (repro/core/distributed.py:246-253); with one virtual block its
-//        result is returned as it is.
-//    The fold gives each warp whole virtual blocks (or, with one virtual
-//    block, strides every thread over its partials) and reduces with
-//    butterfly shuffles.  The whole population is one launch pair per step
-//    (the reference makes one kernel call per virtual block).
+//    multiply and the add rounded separately (dgo::decode_level).
+//  * The parent's work is done once per thread block.  Each block decodes
+//    the parent into shared memory and, for the remote-sensing MLP, stages
+//    the samples and labels there and computes the parent's hidden layer
+//    H_p (m samples x 42 units).  Hidden unit j
+//    depends only on W1[:, j] and b1[j]; a child whose pattern touches none
+//    of those 8 variables has exactly the parent's activations there (the
+//    same inputs through the same arithmetic), so it reads H_p[j] and
+//    recomputes only the units its row's mask marks (built on the host from
+//    the segment table; 14.9 of 42 on average at 680 x 4 bits).  Layer 2
+//    still runs over j = 0..41 in order, so every child's value is bitwise
+//    the value of a full evaluation.
+//  * A persistent grid.  As many blocks as the card holds at once (fewer
+//    when the population is small), one child per warp at a time; warps take
+//    children in order of descending cost (the host sorts the rows by the
+//    number of marked units), the first dealt round the blocks and the rest
+//    from a global counter.  No second wave of blocks.  (A static snake
+//    over the same order was slower, and the rows in order slower still:
+//    the marked units do not price a child exactly; PERF.md.)
+//  * Race-free selection in the same launch.  Each child's value goes to a
+//    (K,) buffer, and its virtual block's winner is kept as a 64-bit
+//    atomicMin of an order-preserving key (NaN first; the value, with -0 and
+//    +0 equal; the row).  The last block to finish (an acquire-release
+//    ticket) reads each block's winner back (its value from the key, or
+//    from the buffer for a NaN or a zero, so that its sign survives),
+//    applies the cross-block rule (fold_vblocks: NaN blocks are dropped,
+//    the rest fold lexicographically on (value, child id) from (+inf,
+//    sentinel), and with one virtual block its winner is the result as it
+//    is; repro/core/distributed.py:246-253), writes (value, id) and resets
+//    the keys, the counter and the ticket for the next launch on the
+//    stream.  Both rules are associative and commutative, so the result
+//    does not depend on the order warps ran in.
+//    popstep_fold_kernel runs the same cross-block rule over given partials,
+//    for checks.
 //
 // What bounds it: operations.  At the paper's largest problem (the
-// 680-variable remote-sensing MLP, 5,439 children, 256 samples) a step is
-// ~1.75 GFLOP against ~50 KB of inputs: ~26 us at the H100's 67 TFLOP/s for
-// float32 outside the tensor cores, 0.02 us at 3.35 TB/s.  The design keeps
-// every child in shared memory and registers: one warp per child, the
-// decoded point in shared memory (n_vars floats per warp), the objective
-// warp-cooperative with a fixed-order shuffle sum.  The remote-sensing MLP
-// reads each weight once per 4 samples from a shared-memory broadcast.  The
-// precise tanhf (~10,752 per child) costs more issue slots than the
-// multiply-adds; tensor cores and a cheaper tanh are later work.
+// 680-variable remote-sensing MLP, 5,439 children, 256 samples) a full
+// evaluation of every child is ~1.75 GFLOP against ~170 KB of inputs and
+// outputs: ~26 us at the H100's 67 TFLOP/s for float32 outside the tensor
+// cores; the work that reuse leaves is ~1.23 GFLOP (~18 us).  The precise
+// tanhf costs more issue slots than the multiply-adds and stays
+// (tanh.approx misses the 1e-5 bar).  The MLP reads each weight once per
+// 4 samples from a shared-memory broadcast, and lanes stride over the
+// samples.  What limits the child loop below that is not measured (no
+// ncu on the card's machine).
 //
 // Built by kernel.py (through kernels/_build.py) with nvcc for sm_90a (no
 // --use_fast_math) into a shared library with a plain C interface; every
-// entry point launches on the caller's stream and returns
-// cudaGetLastError().
+// entry point launches on the caller's stream and returns the CUDA error.
 
 #include <climits>
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -60,14 +77,15 @@ namespace popstep {
 
 using namespace dgo;
 
-constexpr int kWarps = 4;               // children in flight per thread block
+constexpr int kWarps = 8;               // a child each (ops.WARPS)
 constexpr int kThreads = kWarps * 32;
-constexpr int kFoldThreads = 256;
-
-// --- stage 1: child level ---------------------------------------------------
+// the parent's bit string (n_vars * bits <= 32 * n_vars bytes) is staged
+// in the child points' area (kWarps * n_vars floats)
+static_assert(kWarps >= 8, "the parent's bit string must fit the child "
+                           "points' shared memory");
 
 // Level of variable v in the parent: its bits-wide MSB-first field of the
-// 0/1 bit string.
+// 0/1 bit string (in shared memory).
 __device__ __forceinline__ unsigned parent_level(const signed char* bits_str,
                                                  int v, int bits) {
   unsigned level = 0u;
@@ -76,110 +94,60 @@ __device__ __forceinline__ unsigned parent_level(const signed char* bits_str,
   return level;
 }
 
-// --- stages 2 and 3: decode_level and the (min, argmin) fold rules are in
-// dgo_device.cuh ------------------------------------------------------------
-
-struct PartialArgs {
-  const signed char* parent; // (n_vars * bits,) 0/1 parent bit string
-  const int* starts;         // (K,) segment starts
-  const int* ends;           // (K,) segment ends
-  const int* ok;             // (K,) 0 -> the row is +inf
-  int n_rows;                // K
-  int n_vars;
-  int bits;
-  float lo;
-  float scale;
-  ObjParams obj;
-  int vblock;                // rows per virtual block
-  int chunk;                 // rows per thread block
-  int chunks_per_vblock;
-  float* part_val;           // (n_vblocks * chunks_per_vblock,)
-  int* part_row;
-};
-
-template <int OBJ>
-__global__ void __launch_bounds__(kThreads)
-    popstep_partials_kernel(PartialArgs a) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* xs = smem + warp * a.n_vars;
-
-  const int vb = blockIdx.x / a.chunks_per_vblock;
-  const int c = blockIdx.x - vb * a.chunks_per_vblock;
-  const int vb_end = min((vb + 1) * a.vblock, a.n_rows);
-  const int row0 = vb * a.vblock + c * a.chunk;
-  const int row_end = min(row0 + a.chunk, vb_end);
-  const unsigned even_mask = even_positions(a.bits);
-
-  Cand best{CUDART_INF_F, INT_MAX};
-  for (int row = row0 + warp; row < row_end; row += kWarps) {
-    Cand cand{CUDART_INF_F, row};
-    if (a.ok[row]) {                      // uniform across the warp
-      const int s = a.starts[row], e = a.ends[row];
-      for (int v = lane; v < a.n_vars; v += 32)
-        xs[v] = decode_level(
-            child_level(parent_level(a.parent, v, a.bits), v, a.bits, s, e,
-                        even_mask),
-            a.lo, a.scale);
-      __syncwarp();
-      cand.v = Objective<OBJ>::eval(xs, a.n_vars, a.obj, lane);
-      __syncwarp();                       // xs is rewritten by the next row
-    }
-    if (nan_first_better(cand, best)) best = cand;
+// The in-block rule as one unsigned key, smaller is better: a NaN first
+// (high word 0), else the value in an order-preserving map with -0 taken
+// as +0; the row in the low word breaks ties.
+__device__ __forceinline__ unsigned long long cand_key(float v, int row) {
+  unsigned hi = 0u;
+  if (!isnan(v)) {
+    const unsigned u = v == 0.0f ? 0u : __float_as_uint(v);
+    hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   }
-
-  __shared__ Cand warp_best[kWarps];
-  if (lane == 0) warp_best[warp] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    Cand b = warp_best[0];
-    for (int w = 1; w < kWarps; ++w)
-      if (nan_first_better(warp_best[w], b)) b = warp_best[w];
-    a.part_val[blockIdx.x] = b.v;
-    a.part_row[blockIdx.x] = b.row;
-  }
+  return (static_cast<unsigned long long>(hi) << 32) |
+         static_cast<unsigned>(row);
 }
 
-// One block.  With one virtual block every thread strides over its
-// partials; with several, each warp takes whole virtual blocks, drops the
-// NaN ones and keeps the lexicographic best.
-__global__ void __launch_bounds__(kFoldThreads)
-    popstep_fold_kernel(const float* part_val, const int* part_row,
-                        const int* ids, int n_vblocks, int parts_per_vblock,
-                        int sentinel, float* out_val, int* out_id) {
-  constexpr int kFoldWarps = kFoldThreads / 32;
-  __shared__ float sv[kFoldWarps];
-  __shared__ int sk[kFoldWarps];
+// The value behind a key, read from ``vals`` only where the key does not
+// hold it bit for bit (a NaN, or a zero that may be -0).
+__device__ __forceinline__ float key_value(unsigned long long key,
+                                           const float* vals) {
+  const unsigned hi = static_cast<unsigned>(key >> 32);
+  if (hi == 0u || hi == 0x80000000u)
+    return __ldcg(vals + static_cast<unsigned>(key));
+  return __uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
+}
+
+// The cross-block rule.  ``cand_of(vb)`` gives virtual block vb's winner
+// (value, row), called by all 32 lanes of a warp and the same on each;
+// row INT_MAX means none.  With one virtual block its winner is the result
+// as it is (NaN included); with several, NaN blocks are dropped and the
+// rest fold lexicographically on (value, ids[row]) from (+inf, sentinel).
+// Called by every thread of one block of kThreads; thread 0 writes the
+// result.
+template <class CandOf>
+__device__ void fold_vblocks(int n_vblocks, CandOf cand_of, const int* ids,
+                             int sentinel, float* out_val, int* out_id) {
+  __shared__ float sv[kWarps];
+  __shared__ int sk[kWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
   if (n_vblocks == 1) {
-    Cand c{CUDART_INF_F, INT_MAX};
-    for (int p = threadIdx.x; p < parts_per_vblock; p += kFoldThreads) {
-      const Cand q{part_val[p], part_row[p]};
-      if (nan_first_better(q, c)) c = q;
-    }
-    const Cand b = block_nan_first<kFoldThreads>(c);
-    if (threadIdx.x == 0) {
-      *out_val = b.v;
-      *out_id = b.row == INT_MAX ? sentinel : ids[b.row];
+    if (warp == 0) {
+      const Cand c = cand_of(0);
+      if (lane == 0) {
+        *out_val = c.v;
+        *out_id = c.row == INT_MAX ? sentinel : ids[c.row];
+      }
     }
     return;
   }
-
   float bv = CUDART_INF_F;
   int bid = sentinel;
-  for (int vb = warp; vb < n_vblocks; vb += kFoldWarps) {
-    Cand c{CUDART_INF_F, INT_MAX};
-    for (int p = lane; p < parts_per_vblock; p += 32) {
-      const int i = vb * parts_per_vblock + p;
-      const Cand q{part_val[i], part_row[i]};
-      if (nan_first_better(q, c)) c = q;
-    }
-    c = warp_nan_first(c);
+  for (int vb = warp; vb < n_vblocks; vb += kWarps) {
+    const Cand c = cand_of(vb);
+    const int id = c.row == INT_MAX ? sentinel : ids[c.row];
     if (!isnan(c.v) && c.row != INT_MAX) {
-      const int id = ids[c.row];
       if (lex_better(c.v, id, bv, bid)) {
         bv = c.v;
         bid = id;
@@ -193,7 +161,7 @@ __global__ void __launch_bounds__(kFoldThreads)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kFoldWarps; ++w)
+    for (int w = 1; w < kWarps; ++w)
       if (lex_better(sv[w], sk[w], sv[0], sk[0])) {
         sv[0] = sv[w];
         sk[0] = sk[w];
@@ -203,67 +171,258 @@ __global__ void __launch_bounds__(kFoldThreads)
   }
 }
 
+struct StepArgs {
+  const signed char* parent;       // (n_vars * bits,) 0/1 parent bit string
+  const int* starts;               // (K,) segment starts
+  const int* ends;                 // (K,) segment ends
+  const int* ok;                   // (K,) 0 -> the row is +inf
+  const unsigned long long* masks; // (K,) hidden units to recompute, or
+                                   // null (objectives without reuse)
+  const int* order;                // (K,) rows, costliest first, or null
+                                   // (the rows in order)
+  const int* ids;                  // (K,) global child ids
+  int n_rows;                      // K
+  int n_vars;
+  int bits;
+  float lo;
+  float scale;
+  ObjParams obj;
+  int vblock;                      // rows per virtual block
+  int n_vblocks;
+  int sentinel;                    // the cross-block fold's start id
+  float* vals;                     // (K,) each child's value
+  unsigned long long* keys;        // (n_vblocks,) all ones between launches
+  int* ctl;                        // [work counter, ticket], 0 between
+  float* out_val;
+  int* out_id;
+};
+
+// A child at a position of the work order: its row and what the row holds.
+struct Child {
+  int row;
+  int ok;
+  int s;                           // its segment [s, e)
+  int e;
+  unsigned long long mask;         // hidden units to recompute (RS)
+};
+
+__device__ __forceinline__ Child child_at(const StepArgs& a, int idx) {
+  const int row = a.order != nullptr ? a.order[idx] : idx;
+  return Child{row, a.ok[row], a.starts[row], a.ends[row],
+               a.masks != nullptr ? a.masks[row] : 0ull};
+}
+
+// Dynamic shared memory (floats): the parent's point and levels
+// (2 * n_vars), the remote-sensing data (RS::smem_floats(m): the parent's
+// hidden layer, the samples, the labels), one child point per warp
+// (kWarps * n_vars), which first holds the parent's bit string.
+template <int OBJ>
+__global__ void __launch_bounds__(kThreads, 2)
+    popstep_kernel(StepArgs a) {
+  constexpr bool kReuse = OBJ == kRemoteSensing;
+  using RS = Objective<kRemoteSensing>;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* xp = smem;
+  unsigned* plv = reinterpret_cast<unsigned*>(smem + a.n_vars);
+  float* data = smem + 2 * a.n_vars;
+  float* xs0 = data + (kReuse ? RS::smem_floats(a.obj.m) : 0);
+  float* xs = xs0 + warp * a.n_vars;
+
+  // the warp's first child, read while the block prepares the parent: the
+  // first positions of the work order go round the blocks, so that every
+  // block starts with its share of the costliest children
+  int idx = warp * gridDim.x + blockIdx.x;
+  Child c = idx < a.n_rows ? child_at(a, idx) : Child{};
+
+  // the parent, once per block: its bit string in one coalesced read (and
+  // the remote-sensing samples beside it), then its levels and point, then
+  // its hidden layer
+  signed char* bits_s = reinterpret_cast<signed char*>(xs0);
+  const int n_bits = a.n_vars * a.bits;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < n_bits; i += kThreads)
+    bits_s[i] = a.parent[i];
+  if constexpr (kReuse) RS::stage(a.obj, data);
+  __syncthreads();
+  for (int v = threadIdx.x; v < a.n_vars; v += kThreads) {
+    const unsigned level = parent_level(bits_s, v, a.bits);
+    plv[v] = level;
+    xp[v] = decode_level(level, a.lo, a.scale);
+  }
+  __syncthreads();
+  if constexpr (kReuse) {
+    RS::parent_hidden(xp, a.obj, data);
+    __syncthreads();
+  }
+
+  // the children: the first dealt round the blocks, the rest from the
+  // counter (taken one child ahead, so its latency hides behind the work)
+  const unsigned even_mask = even_positions(a.bits);
+  const int n_dealt = gridDim.x * kWarps;
+  while (idx < a.n_rows) {
+    int next = a.n_rows;
+    if (n_dealt < a.n_rows && lane == 0)
+      next = n_dealt + atomicAdd(a.ctl, 1);
+    float v = CUDART_INF_F;
+    if (c.ok) {                         // uniform across the warp
+      // variables the pattern can touch: [s / bits, end of [s, e)), or to
+      // the last variable when the segment's length is odd
+      const int v_lo = c.s / a.bits;
+      const int v_hi =
+          ((c.e - c.s) & 1) ? a.n_vars : (c.e + a.bits - 1) / a.bits;
+      for (int k = lane; k < a.n_vars; k += 32)
+        xs[k] = (k >= v_lo && k < v_hi)
+                    ? decode_level(child_level(plv[k], k, a.bits, c.s, c.e,
+                                               even_mask),
+                                   a.lo, a.scale)
+                    : xp[k];
+      __syncwarp();
+      if constexpr (kReuse)
+        v = RS::eval_reuse(xs, a.obj, lane, data, c.mask);
+      else
+        v = Objective<OBJ>::eval(xs, a.n_vars, a.obj, lane);
+      __syncwarp();                     // xs is rewritten by the next child
+    }
+    if (lane == 0) {
+      a.vals[c.row] = v;
+      atomicMin(a.keys + c.row / a.vblock, cand_key(v, c.row));
+    }
+    idx = __shfl_sync(kFullMask, next, 0);
+    if (idx < a.n_rows) c = child_at(a, idx);
+  }
+
+  // the last block to finish folds the virtual blocks' winners: the
+  // barrier and thread 0's release order every warp's writes before the
+  // block's ticket; in the last block the ticket's acquire and the barrier
+  // order every block's writes before the fold's reads
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(a.ctl[1]);
+    last = ticket.fetch_add(1, cuda::memory_order_acq_rel) ==
+           static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  fold_vblocks(
+      a.n_vblocks,
+      [&](int vb) {
+        const unsigned long long k = __ldcg(a.keys + vb);
+        if (k == ~0ull) return Cand{CUDART_INF_F, INT_MAX};
+        return Cand{key_value(k, a.vals),
+                    static_cast<int>(static_cast<unsigned>(k))};
+      },
+      a.ids, a.sentinel, a.out_val, a.out_id);
+  __syncthreads();
+  for (int vb = threadIdx.x; vb < a.n_vblocks; vb += kThreads)
+    a.keys[vb] = ~0ull;
+  if (threadIdx.x == 0) {
+    a.ctl[0] = 0;
+    a.ctl[1] = 0;
+  }
+}
+
+// The cross-block rule over partial (value, row) pairs in n_vblocks equal
+// runs, each run first reduced by the in-block rule (NaN first, then value,
+// then row).  One block; for checks of fold_vblocks.
+__global__ void __launch_bounds__(kThreads)
+    popstep_fold_kernel(const float* part_val, const int* part_row,
+                        const int* ids, int n_vblocks, int parts_per_vblock,
+                        int sentinel, float* out_val, int* out_id) {
+  const int lane = threadIdx.x & 31;
+  fold_vblocks(
+      n_vblocks,
+      [&](int vb) {
+        Cand c{CUDART_INF_F, INT_MAX};
+        for (int p = lane; p < parts_per_vblock; p += 32) {
+          const int i = vb * parts_per_vblock + p;
+          const Cand q{part_val[i], part_row[i]};
+          if (nan_first_better(q, c)) c = q;
+        }
+        return warp_nan_first(c);
+      },
+      ids, sentinel, out_val, out_id);
+}
+
+using StepKernel = void (*)(StepArgs);
+
+StepKernel kernel_of(int obj_id) {
+  switch (obj_id) {
+    case kQuadratic: return popstep_kernel<kQuadratic>;
+    case kRastrigin: return popstep_kernel<kRastrigin>;
+    case kAckley: return popstep_kernel<kAckley>;
+    case kGriewank: return popstep_kernel<kGriewank>;
+    case kShekel: return popstep_kernel<kShekel>;
+    case kBeckerLago: return popstep_kernel<kBeckerLago>;
+    case kSample2d: return popstep_kernel<kSample2d>;
+    case kXor: return popstep_kernel<kXor>;
+    case kRemoteSensing: return popstep_kernel<kRemoteSensing>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace popstep
 
 extern "C" {
 
-// Partials: one (value, row) per thread block of kWarps warps, one warp per
-// child.  Dynamic shared memory: kWarps * n_vars floats.
-int popstep_partials(const signed char* parent, const int* starts,
-                     const int* ends, const int* ok, int n_rows, int n_vars,
-                     int bits, float lo, float scale, int obj_id,
-                     const float* c0, const float* c1, int m, float param,
-                     int vblock, int chunk, int n_vblocks,
-                     int chunks_per_vblock, float* part_val, int* part_row,
-                     void* stream) {
+// Blocks of kThreads threads and ``smem`` bytes of dynamic shared memory
+// that the card holds at once for objective ``obj_id``: the persistent
+// grid.  Also lifts the kernel's dynamic shared-memory limit to the card's.
+int popstep_grid(int obj_id, int smem, int* blocks) {
   using namespace popstep;
-  PartialArgs a{parent, starts, ends, ok, n_rows, n_vars, bits,
-                lo, scale, ObjParams{c0, c1, m, param}, vblock, chunk,
-                chunks_per_vblock, part_val, part_row};
-  const dim3 grid(n_vblocks * chunks_per_vblock);
-  const size_t smem = sizeof(float) * kWarps * n_vars;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (obj_id) {
-    case kQuadratic:
-      popstep_partials_kernel<kQuadratic><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kRastrigin:
-      popstep_partials_kernel<kRastrigin><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kAckley:
-      popstep_partials_kernel<kAckley><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kGriewank:
-      popstep_partials_kernel<kGriewank><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kShekel:
-      popstep_partials_kernel<kShekel><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kBeckerLago:
-      popstep_partials_kernel<kBeckerLago><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kSample2d:
-      popstep_partials_kernel<kSample2d><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kXor:
-      popstep_partials_kernel<kXor><<<grid, kThreads, smem, st>>>(a);
-      break;
-    case kRemoteSensing:
-      popstep_partials_kernel<kRemoteSensing>
-          <<<grid, kThreads, smem, st>>>(a);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const StepKernel fn = kernel_of(obj_id);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+  if (!err) err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err) err = cudaFuncGetAttributes(&attr, fn);
+  if (!err) err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(fn),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      optin - static_cast<int>(attr.sharedSizeBytes));
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, kThreads, static_cast<size_t>(smem));
+  *blocks = sms * per_sm;
+  return static_cast<int>(err);
 }
 
-// Fold: one block; writes the step's (value, child id).
+// One step: every child's value in ``vals``, the best child's (value,
+// child id) in ``out_val``/``out_id``.  ``keys`` must hold all ones and
+// ``ctl`` zeros, as the launch before on this stream leaves them.
+int popstep_step(const signed char* parent, float* vals, float* out_val,
+                 int* out_id, const int* starts, const int* ends,
+                 const int* ok, const unsigned long long* masks,
+                 const int* order, const int* ids, int n_rows, int n_vars,
+                 int bits, float lo, float scale, int obj_id, const float* c0,
+                 const float* c1, int m, float param, int vblock,
+                 int n_vblocks, int sentinel, unsigned long long* keys,
+                 int* ctl, int blocks, int smem, void* stream) {
+  using namespace popstep;
+  const StepKernel fn = kernel_of(obj_id);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  StepArgs a{parent, starts, ends, ok, masks, order, ids, n_rows, n_vars,
+             bits, lo, scale, ObjParams{c0, c1, m, param}, vblock, n_vblocks,
+             sentinel, vals, keys, ctl, out_val, out_id};
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchKernel(
+      reinterpret_cast<const void*>(fn), dim3(blocks), dim3(kThreads), args,
+      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err ? err : cudaGetLastError());
+}
+
+// The cross-block rule alone, over partials: one block; writes (value,
+// child id).
 int popstep_fold(const float* part_val, const int* part_row, const int* ids,
                  int n_vblocks, int parts_per_vblock, int sentinel,
                  float* out_val, int* out_id, void* stream) {
   using namespace popstep;
-  popstep_fold_kernel<<<1, kFoldThreads, 0,
+  popstep_fold_kernel<<<1, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       part_val, part_row, ids, n_vblocks, parts_per_vblock, sentinel,
       out_val, out_id);

@@ -3,6 +3,7 @@
 ``population_step``     — full 2N-1 population of one parent -> (val, id).
 ``population_step_ids`` — an arbitrary id subset, optionally cut into
 virtual blocks (the engine's virtual processing) -> (val, global id).
+``child_values``        — every child's value of such a step.
 
 Where the tensors live decides how the step runs.  On a CUDA tensor the
 wrapper launches the CUDA kernel (``csrc/popstep.cu``) or raises; on a
@@ -11,30 +12,44 @@ CPU tensor it runs the plain PyTorch version of the same function
 arithmetic with tensor operations.  No path falls back from one to the
 other.
 
-A step is two kernels: ``popstep_partials_kernel`` (one partial per
-thread block) and ``popstep_fold_kernel`` (the step's winner).
-``launches`` counts the first and ``fold_launches`` the second, each
-where the step launches it; :func:`fold_partials` (the fold alone, for
-checks) is not counted.  Callers that need a count for one run set
-both to 0 first.
+A step is one launch of ``popstep_kernel``: every child's value, the
+virtual blocks' winners and the cross-block fold.  ``launches`` counts
+it where a step launches it.  ``fold_launches`` counts launches of the
+cross-block fold on its own (``popstep_fold_kernel``), which only
+:func:`fold_partials` (the fold alone, for checks) makes: no step does,
+so around the main path it reads 0.  Callers that need a count for one
+run set both to 0 first.
+
+For the remote-sensing MLP the kernel evaluates the parent's hidden
+layer once per thread block and recomputes in each child only the
+hidden units its segment pattern touches (:func:`hidden_unit_masks`);
+:func:`hidden_reuse_values_plain` is that arithmetic in PyTorch.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
+import numpy as np
 import torch
 
+from repro_torch.core.cache import get_cache
 from repro_torch.core.encoding import Encoding, decode_levels, levels_of
-from repro_torch.core.objectives import OBJECTIVE_IDS, RS_NVARS
-from repro_torch.core.population import table_on
-from repro_torch.kernels._plain import child_levels, nan_first_rows
+from repro_torch.core.objectives import (OBJECTIVE_IDS, RS_CLASSES, RS_HIDDEN,
+                                         RS_IN, RS_NVARS)
+from repro_torch.core.population import segment_table, table_on
+from repro_torch.kernels._plain import _INT_MAX, child_levels, nan_first_rows
 
 launches = 0
 fold_launches = 0
 
-CHUNK = 4                 # rows per thread block of the partials launch
-MAX_SMEM = 48 * 1024      # static limit for the decoded-point buffers
-WARPS = 4                 # warps per thread block (csrc/popstep.cu kWarps)
+WARPS = 8                 # warps per thread block, a child each (kWarps)
+MAX_SMEM = 226 * 1024     # an H100 block's 227 KB (opt-in), less static
+_RS_ID = OBJECTIVE_IDS["remote_sensing"]
+_RS_W1B1 = RS_IN * RS_HIDDEN + RS_HIDDEN   # the variables of W1 and b1
+_ALL_UNITS = (1 << RS_HIDDEN) - 1
+_MASKS = get_cache("popstep.hidden_masks", maxsize=32)
+_GRIDS = get_cache("popstep.grids", maxsize=64)
 
 
 def _fn_of(objective):
@@ -62,15 +77,113 @@ def fold_partials_plain(part_val: torch.Tensor, part_row: torch.Tensor,
     (+inf, sentinel)."""
     best, row = nan_first_rows(part_val.reshape(n_vblocks, -1),
                                part_row.to(torch.int64).reshape(n_vblocks, -1))
+    return _cross_fold(best, row, ids, sentinel)
+
+
+def _cross_fold(best: torch.Tensor, row: torch.Tensor, ids: torch.Tensor,
+                sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross-block rule (``fold_vblocks`` in ``csrc/popstep.cu``) over
+    each virtual block's winner (value, row)."""
     gid = ids.to(torch.int64)[row.clamp(max=ids.shape[0] - 1)]
-    if n_vblocks == 1:
+    if best.shape[0] == 1:
         return best[0], gid[0].to(torch.int32)
     keep = ~torch.isnan(best)
     v2 = torch.where(keep, best, torch.inf)
-    g2 = torch.where(keep, gid, sentinel)
     win = v2.amin()
-    win_id = torch.where(v2 == win, g2, sentinel).amin()
-    return win, win_id.to(torch.int32)
+    hit = keep & (v2 == win)
+    win_id = torch.where(hit, gid, _INT_MAX).amin()
+    # the fold starts from (+inf, sentinel): it wins a tie at +inf
+    win_id = torch.where(win == torch.inf,
+                         torch.clamp(win_id, max=sentinel), win_id)
+    # the winning block's own value (amin may return either zero of a tie
+    # between -0.0 and 0.0), +inf where the start value won
+    own = hit & (gid == win_id)
+    win_val = torch.where(own.any(), best[own.to(torch.int8).argmax()],
+                          torch.inf)
+    return win_val, win_id.to(torch.int32)
+
+
+def cand_keys_plain(vals: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The kernel's 64-bit selection key of each (value, row) (``cand_key``
+    in ``csrc/popstep.cu``), as int64 in the same order (the unsigned high
+    word is shifted by 2^31): a NaN is smallest, then the value with -0 and
+    +0 equal, then the row."""
+    u = vals.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    u = torch.where(vals == 0, 0, u & 0xFFFFFFFF)
+    hi = torch.where(u >= 1 << 31, ~u & 0xFFFFFFFF, u | 1 << 31)
+    hi = torch.where(torch.isnan(vals), 0, hi)
+    return ((hi - (1 << 31)) << 32) | rows.to(torch.int64)
+
+
+def fold_values_plain(vals: torch.Tensor, ids: torch.Tensor, n_vblocks: int,
+                      sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's selection over every child's value: ``vals`` (K,) in
+    ``n_vblocks`` equal runs; each run's winner is its smallest key
+    (:func:`cand_keys_plain`), its value read back from ``vals``; then the
+    cross-block rule.  The same result as :func:`fold_partials_plain` with
+    one partial per row."""
+    rows = torch.arange(vals.shape[0], device=vals.device)
+    key = cand_keys_plain(vals, rows).reshape(n_vblocks, -1).amin(1)
+    row = key & 0xFFFFFFFF
+    return _cross_fold(vals[row], row, ids, sentinel)
+
+
+def hidden_unit_masks(n_bits: int, bits: int) -> np.ndarray:
+    """(2N-1,) int64 per child of an N-bit parent of the remote-sensing
+    layout (``bits`` per variable): bit j is set iff the child's segment
+    pattern (``core.population.segment_patterns``) flips a bit of W1[k, j]
+    (variable k * 42 + j, k < 7) or of b1[j] (variable 294 + j), i.e. iff
+    hidden unit j must be recomputed.  It depends on (N, bits) and the
+    segment only, never on the parent; built in closed form from the
+    segment table and memoized."""
+    n_bits, bits = int(n_bits), int(bits)
+
+    def build() -> np.ndarray:
+        table = segment_table(n_bits).astype(np.int64)
+        s, e = table[:, :1], table[:, 1:]
+        v = np.arange(_RS_W1B1)
+        lo = np.maximum(s, v * bits)
+        hi = np.minimum(e, (v + 1) * bits)
+        # the first flipped bit inside [s, e) at or after lo (j - s even),
+        # or the odd segment's tail reaching past e
+        touched = ((lo + ((lo - s) & 1)) < hi) | (((e - s) & 1 == 1)
+                                                   & ((v + 1) * bits > e))
+        w1 = touched[:, :RS_IN * RS_HIDDEN].reshape(-1, RS_IN, RS_HIDDEN)
+        units = w1.any(1) | touched[:, RS_IN * RS_HIDDEN:]
+        return (units.astype(np.int64) << np.arange(RS_HIDDEN)).sum(1)
+
+    return _MASKS.get((n_bits, bits), build)
+
+
+def hidden_reuse_values_plain(objective, parent_bits: torch.Tensor,
+                              child_ids: torch.Tensor, enc: Encoding,
+                              masks: torch.Tensor) -> torch.Tensor:
+    """(K,) remote-sensing values of the children ``child_ids`` by the
+    kernel's reuse arithmetic: hidden unit j of child k is recomputed from
+    the child's weights where bit j of ``masks[k]`` is set, else taken
+    from the parent's hidden layer; then layer 2 and the mean softmax
+    cross-entropy.  Exact only with the masks of
+    :func:`hidden_unit_masks`."""
+    x, y = (c.to(device=parent_bits.device, dtype=torch.float32)
+            for c in objective.kernel.consts)
+    ids = child_ids.to(torch.int64).clamp(0, 2 * enc.n_bits - 2)
+    table = table_on("table", enc.n_bits, parent_bits.device)
+    plv = levels_of(parent_bits, enc)
+    w = decode_levels(child_levels(plv, table[ids, 0], table[ids, 1], enc),
+                      enc)
+    wp = decode_levels(plv, enc)[None]
+
+    def hidden(w):
+        w1 = w[:, :RS_IN * RS_HIDDEN].reshape(-1, RS_IN, RS_HIDDEN)
+        return torch.tanh(x @ w1 + w[:, None, RS_IN * RS_HIDDEN:_RS_W1B1])
+
+    unit = (masks.to(torch.int64)[:, None]
+            >> torch.arange(RS_HIDDEN, device=masks.device)) & 1
+    h = torch.where(unit[:, None, :] == 1, hidden(w), hidden(wp))
+    w2 = w[:, _RS_W1B1:RS_NVARS - RS_CLASSES].reshape(-1, RS_HIDDEN,
+                                                      RS_CLASSES)
+    logits = h @ w2 + w[:, None, RS_NVARS - RS_CLASSES:]
+    return -(y * torch.log_softmax(logits, dim=-1)).sum(-1).mean(-1)
 
 
 def child_values_plain(objective, parent_bits: torch.Tensor,
@@ -99,8 +212,7 @@ def population_step_ids_plain(objective, parent_bits: torch.Tensor,
     n_vb = _n_vblocks(k, virtual_block)
     vals = child_values_plain(objective, parent_bits, child_ids, enc, valid)
     ids = child_ids.to(torch.int64).clamp(0, 2 * enc.n_bits - 2)
-    rows = torch.arange(k, device=vals.device)
-    return fold_partials_plain(vals, rows, ids, n_vb, enc.population)
+    return fold_values_plain(vals, ids, n_vb, enc.population)
 
 
 def _n_vblocks(k: int, virtual_block: int | None) -> int:
@@ -133,9 +245,61 @@ def _check_kernel_form(kernel, enc: Encoding) -> None:
                          f"{shapes} does not fit n_vars={n}")
 
 
-def _prepare_cuda(objective, child_ids, enc, valid, n_vb):
+def _smem_bytes(kernel, enc: Encoding) -> int:
+    """Dynamic shared memory of one thread block: the parent's point and
+    levels, one child point per warp and, for the remote-sensing MLP
+    (``RS::smem_floats``), the parent's hidden layer for m samples rounded
+    up to passes of 128, the samples and the labels ((7 + 8) x m), rounded
+    up to 16 bytes."""
+    floats = (2 + WARPS) * enc.n_vars
+    if kernel.obj_id == _RS_ID:
+        m = kernel.consts[0].shape[0]
+        layer = RS_HIDDEN * 128 * -(-m // 128)
+        floats += -(-(layer + (RS_IN + RS_CLASSES) * m) // 4) * 4
+    return 4 * floats
+
+
+class _CudaStep:
+    """A step bound to its id subset on the card: ``step(parent_bits) ->
+    (value, child id)``, one kernel launch.  ``values`` is the (K,)
+    float32 value of every child of the latest launch (+inf where not
+    valid).  The selection state (the virtual blocks' keys, the work
+    counter and the ticket) lives here and each launch leaves it reset for
+    the next, so one bound step runs on one stream at a time."""
+
+    def __init__(self, lib, enc: Encoding, dev, n_rows: int, args: tuple,
+                 keep: list):
+        self._lib, self._enc, self._dev, self._k = lib, enc, dev, n_rows
+        self._args = args        # popstep_step's arguments after out_id
+        self._keep = keep        # the device arrays behind those pointers
+        self.values = None
+
+    def __call__(self, parent_bits: torch.Tensor):
+        global launches
+        enc, dev, k = self._enc, self._dev, self._k
+        if parent_bits.device != dev or parent_bits.shape != (enc.n_bits,):
+            raise ValueError(f"parent_bits must be ({enc.n_bits},) on {dev}, "
+                             f"got {tuple(parent_bits.shape)} on "
+                             f"{parent_bits.device}")
+        parent = parent_bits.to(torch.int8).contiguous()
+        # every child's value, then the step's (value, id): one allocation
+        buf = torch.empty(k + 2, dtype=torch.float32, device=dev)
+        ptr = buf.data_ptr()
+        err = self._lib.popstep_step(
+            parent.data_ptr(), ptr, ptr + 4 * k, ptr + 4 * (k + 1),
+            *self._args, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"popstep launch failed: CUDA error {err}")
+        launches += 1
+        self.values = buf[:k]
+        return buf[k], buf[k + 1:].view(torch.int32)[0]
+
+
+def _prepare_cuda(objective, child_ids, enc, valid, n_vb, *, reuse=True):
     """Check the inputs and build every device array that does not depend
-    on the parent; returns ``launch(parent_bits) -> (val, id)``."""
+    on the parent; returns the bound step (:class:`_CudaStep`).
+    ``reuse=False`` marks every hidden unit of the remote-sensing MLP, so
+    each child is evaluated in full (the same values, bitwise)."""
     kernel = _kernel_of(objective)
     if kernel is None:
         raise ValueError(
@@ -144,10 +308,15 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb):
     if not 1 <= enc.bits <= 32:
         raise ValueError(f"the popstep kernel takes 1..32 bits per "
                          f"variable, got {enc.bits}")
-    if WARPS * enc.n_vars * 4 > MAX_SMEM:
-        raise ValueError(f"n_vars={enc.n_vars} exceeds the kernel's "
-                         f"shared-memory budget")
     _check_kernel_form(kernel, enc)
+    smem = _smem_bytes(kernel, enc)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"n_vars={enc.n_vars}"
+            + (f" with m={kernel.consts[0].shape[0]} samples"
+               if kernel.obj_id == _RS_ID else "")
+            + f" needs {smem} bytes of shared memory a block, over the "
+              f"kernel's shared-memory budget of {MAX_SMEM}")
     dev = child_ids.device
     if valid is not None and valid.device != dev:
         raise ValueError(f"valid is on {valid.device}, child_ids on {dev}")
@@ -155,64 +324,74 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb):
 
     lib = LIBRARY.load()
     k = child_ids.shape[0]
-    vb = k // n_vb
-    cpv = math.ceil(vb / CHUNK)
     ids = child_ids.to(torch.int64).clamp(0, 2 * enc.n_bits - 2)
     table = table_on("table", enc.n_bits, dev)
-    starts = table[ids, 0].to(torch.int32).contiguous()
-    ends = table[ids, 1].to(torch.int32).contiguous()
     ok = (torch.ones(k, dtype=torch.int32, device=dev) if valid is None
-          else valid.to(torch.int32).contiguous())
+          else valid.to(torch.int32))
+    starts, ends, ok = (t.to(torch.int32).contiguous() for t in (
+        table[ids, 0], table[ids, 1], ok))
+    # without a hidden layer: no masks, and the rows in order
+    masks = order = None
+    if kernel.obj_id == _RS_ID:
+        masks = (torch.as_tensor(hidden_unit_masks(enc.n_bits, enc.bits),
+                                 device=dev)[ids] if reuse else
+                 torch.full((k,), _ALL_UNITS, dtype=torch.int64, device=dev))
+        # work order: the most hidden units to recompute first, masked rows
+        # last (their value is +inf without any work)
+        cost = torch.where(ok == 1, _units_of(masks), -1)
+        order = torch.argsort(-cost, stable=True).to(torch.int32)
     ids32 = ids.to(torch.int32).contiguous()
-    # the kernel reads the constants through raw pointers: this copy
-    # (a few KB) lives as long as ``launch`` does
-    consts = tuple(c.to(device=dev, dtype=torch.float32).contiguous()
-                   for c in kernel.consts)
-    m = consts[0].shape[0] if consts else 0
+    consts = [c.to(device=dev, dtype=torch.float32).contiguous()
+              for c in kernel.consts] + [None, None]
+    keys = torch.full((n_vb,), -1, dtype=torch.int64, device=dev)
+    ctl = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    grid = min(_resident_blocks(lib, kernel.obj_id, smem, dev),
+               math.ceil(k / WARPS))
     scale = float(torch.tensor(enc.scale, dtype=torch.float32))
     lo = float(torch.tensor(enc.lo, dtype=torch.float32))
+    # the kernel reads these through raw pointers: the bound step keeps
+    # them (the objective's constants too, a few KB)
+    keep = [starts, ends, ok, masks, order, ids32, consts[0], consts[1],
+            keys, ctl]
+    p = [None if t is None else t.data_ptr() for t in keep]
+    args = (*p[:6], k, enc.n_vars, enc.bits, lo, scale, kernel.obj_id,
+            p[6], p[7], 0 if consts[0] is None else consts[0].shape[0],
+            float(kernel.param), k // n_vb, n_vb, enc.population, p[8], p[9],
+            grid, smem)
+    return _CudaStep(lib, enc, dev, k, args, keep)
 
-    def launch(parent_bits: torch.Tensor):
-        global launches, fold_launches
-        c0 = consts[0].data_ptr() if consts else None
-        c1 = consts[1].data_ptr() if len(consts) > 1 else None
-        if parent_bits.device != dev or parent_bits.shape != (enc.n_bits,):
-            raise ValueError(f"parent_bits must be ({enc.n_bits},) on {dev}, "
-                             f"got {tuple(parent_bits.shape)} on "
-                             f"{parent_bits.device}")
-        parent = parent_bits.to(torch.int8).contiguous()
-        part_val = torch.empty(n_vb * cpv, dtype=torch.float32, device=dev)
-        part_row = torch.empty(n_vb * cpv, dtype=torch.int32, device=dev)
-        out_val = torch.empty(1, dtype=torch.float32, device=dev)
-        out_id = torch.empty(1, dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.popstep_partials(
-            parent.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-            ok.data_ptr(), k, enc.n_vars, enc.bits, lo, scale,
-            kernel.obj_id, c0, c1, m, float(kernel.param), vb, CHUNK, n_vb,
-            cpv, part_val.data_ptr(), part_row.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"popstep partials launch failed: CUDA "
-                               f"error {err}")
-        launches += 1
-        err = lib.popstep_fold(part_val.data_ptr(), part_row.data_ptr(),
-                               ids32.data_ptr(), n_vb, cpv, enc.population,
-                               out_val.data_ptr(), out_id.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"popstep fold launch failed: CUDA error "
-                               f"{err}")
-        fold_launches += 1
-        return out_val[0], out_id[0]
 
-    return launch
+def _resident_blocks(lib, obj_id: int, smem: int, dev) -> int:
+    """Blocks of ``WARPS`` warps and ``smem`` bytes that the card holds at
+    once (the persistent grid), asked of the CUDA runtime once per library
+    and shape (the call also lifts the kernel's shared-memory limit)."""
+    def ask() -> int:
+        blocks = ctypes.c_int(0)
+        err = lib.popstep_grid(obj_id, smem, ctypes.byref(blocks))
+        if err or blocks.value < 1:
+            raise RuntimeError(f"popstep: no block of {WARPS * 32} threads "
+                               f"and {smem} bytes fits the card (CUDA error "
+                               f"{err})")
+        return blocks.value
+
+    return _GRIDS.get((lib._name, dev.index, obj_id, smem), ask)
+
+
+def _units_of(masks: torch.Tensor) -> torch.Tensor:
+    """The number of hidden units each mask marks."""
+    units = torch.arange(RS_HIDDEN, device=masks.device)
+    return ((masks[:, None] >> units) & 1).sum(1)
 
 
 def fold_partials(part_val: torch.Tensor, part_row: torch.Tensor,
                   ids: torch.Tensor, n_vblocks: int,
                   sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Fold partial (value, row) pairs (see :func:`fold_partials_plain`
-    for the rule): the kernel's fold launch on CUDA tensors, the plain
-    rule on CPU tensors.  Not counted in ``fold_launches``."""
+    for the rule): on CUDA tensors ``popstep_fold_kernel``, which runs
+    the step kernel's own cross-block rule (``fold_vblocks``) over them,
+    counted in ``fold_launches``; the plain rule on CPU tensors."""
+    global fold_launches
     if not part_val.is_cuda:
         return fold_partials_plain(part_val, part_row, ids, n_vblocks,
                                    sentinel)
@@ -234,6 +413,7 @@ def fold_partials(part_val: torch.Tensor, part_row: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"popstep fold launch failed: CUDA error {err}")
+    fold_launches += 1
     return out_val[0], out_id[0]
 
 
@@ -286,6 +466,23 @@ def population_step_ids(objective, parent_bits: torch.Tensor,
     """
     return prepare_step_ids(objective, child_ids, enc, valid=valid,
                             virtual_block=virtual_block)(parent_bits)
+
+
+def child_values(objective, parent_bits: torch.Tensor,
+                 child_ids: torch.Tensor, enc: Encoding,
+                 valid: torch.Tensor | None = None, *,
+                 reuse: bool = True) -> torch.Tensor:
+    """(K,) float32 value of every child in ``child_ids`` (+inf where
+    ``valid`` is False): on CUDA ids the buffer one kernel launch fills
+    (counted in ``launches``; ``reuse=False`` recomputes every hidden unit
+    of the remote-sensing MLP, which must give the same bits); on CPU ids
+    :func:`child_values_plain`."""
+    if not child_ids.is_cuda:
+        return child_values_plain(objective, parent_bits, child_ids, enc,
+                                  valid)
+    step = _prepare_cuda(objective, child_ids, enc, valid, 1, reuse=reuse)
+    step(parent_bits)
+    return step.values
 
 
 def population_step(objective, parent_bits: torch.Tensor, enc: Encoding

@@ -76,8 +76,9 @@ def _check_kernel_vs_plain(cuda, name, obj, enc):
         before = (ops.launches, ops.fold_launches)
         kv, ki = ops.population_step_ids(obj, parent, i, enc, valid=v,
                                          virtual_block=vb)
+        # one launch a step: the fold runs inside it
         assert (ops.launches, ops.fold_launches) == (before[0] + 1,
-                                                     before[1] + 1)
+                                                     before[1])
         pv, pi = ops.population_step_ids_plain(obj, parent, i, enc, valid=v,
                                                virtual_block=vb)
         torch.cuda.synchronize()
@@ -96,7 +97,11 @@ def test_fold_matches_plain_rule(cuda):
                         dtype=torch.int32, device=cuda)
     ids = torch.arange(40, 52, device=cuda)
     for nb, sl in ((4, slice(None)), (1, slice(3, 6)), (1, slice(0, 3))):
+        before = (ops.launches, ops.fold_launches)
         kv, ki = ops.fold_partials(vals[sl], rows[sl], ids, nb, sentinel=99)
+        # the fold alone is one counted launch of its own kernel
+        assert (ops.launches, ops.fold_launches) == (before[0],
+                                                     before[1] + 1)
         pv, pi = ops.fold_partials_plain(vals[sl], rows[sl], ids, nb,
                                          sentinel=99)
         assert int(ki) == int(pi)
@@ -136,11 +141,89 @@ def test_main_path_goes_through_the_kernel(cuda):
     ops.launches = ops.fold_launches = 0
     pop = solve(prob, Distributed(inner="popstep"), x0=x0, max_iters=16)
     assert ops.launches >= 16 and pop.extras["finite"]
-    assert ops.fold_launches == ops.launches
+    assert ops.fold_launches == 0        # the fold is inside each launch
     fused = solve(prob, Distributed(inner="fused"), x0=x0, max_iters=16)
     h_p, h_f = pop.extras["history"], fused.extras["history"]
     n = min(len(h_p), len(h_f))
     assert np.allclose(h_p[:n], h_f[:n], rtol=TOL, atol=TOL)
+
+
+def _engine_step(cuda, obj, enc, seed):
+    plan = _shard_plan(enc.population, 1, 256)
+    ids = torch.arange(plan.n_blocks * plan.block, device=cuda)
+    valid = ids < plan.pop
+    parent = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 2, enc.n_bits).astype(np.int8), device=cuda)
+    return parent, ids.clamp(max=plan.pop - 1), valid, plan.block
+
+
+@pytest.mark.parametrize("name,bits", [("remote_sensing", 4)]
+                         + [("rastrigin", b) for b in (8, 10, 12, 14, 16)])
+def test_every_child_value_matches_plain_version(cuda, name, bits):
+    """The kernel's (K,) value buffer, child by child, against the plain
+    version (masked rows +inf in both)."""
+    obj = (objectives.get(name) if name == "remote_sensing"
+           else objectives.get(name, n=9))
+    enc = obj.encoding.with_bits(bits)
+    parent, ids, valid, block = _engine_step(cuda, obj, enc, bits)
+    step = ops.prepare_step_ids(obj, ids, enc, valid=valid,
+                                virtual_block=block)
+    step(parent)
+    got = step.values
+    want = ops.child_values_plain(obj, parent, ids, enc, valid)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.isclose(got, want, rtol=TOL, atol=_atol(name, enc)).all()
+
+
+def test_reused_hidden_units_are_bitwise_a_full_evaluation(cuda):
+    """Reading the parent's hidden unit where the child's pattern leaves
+    its variables alone gives the same bits as recomputing every unit."""
+    obj = objectives.get("remote_sensing")
+    parent, ids, valid, _ = _engine_step(cuda, obj, obj.encoding, 7)
+    reused = ops.child_values(obj, parent, ids, obj.encoding, valid)
+    full = ops.child_values(obj, parent, ids, obj.encoding, valid,
+                            reuse=False)
+    assert torch.equal(reused.view(torch.int32), full.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["remote_sensing", "rastrigin"])
+def test_consecutive_launches_give_the_same_step(cuda, name):
+    """Each launch leaves the keys, the work counter and the ticket reset
+    for the next: a bound step launched again gives the same result."""
+    obj = (objectives.get(name) if name == "remote_sensing"
+           else objectives.get(name, n=9))
+    enc = obj.encoding if name == "remote_sensing" else \
+        obj.encoding.with_bits(16)
+    parent, ids, valid, block = _engine_step(cuda, obj, enc, 11)
+    step = ops.prepare_step_ids(obj, ids, enc, valid=valid,
+                                virtual_block=block)
+    first = [float(t) for t in step(parent)]
+    for _ in range(3):
+        assert [float(t) for t in step(parent)] == first
+    pv, pi = ops.population_step_ids_plain(obj, parent, ids, enc,
+                                           valid=valid, virtual_block=block)
+    assert np.isclose(first[0], float(pv), rtol=TOL, atol=_atol(name, enc))
+
+
+def test_fold_keeps_signed_zeros_and_drops_nan_blocks(cuda):
+    """The cross-block rule on its own (``fold_partials``) over crafted
+    partials: a -0.0 winner keeps its sign, a NaN block is dropped across
+    blocks and is the answer of a single block."""
+    nan = float("nan")
+    vals = torch.tensor([-0.0, 0.0, 1.0, nan, 2.0, 3.0, 0.0, -0.0, 5.0],
+                        device=cuda)
+    rows = torch.arange(9, dtype=torch.int32, device=cuda)
+    ids = torch.arange(9, device=cuda)
+    for nb, nan_wins in ((1, True), (3, False)):
+        kv, ki = ops.fold_partials(vals, rows, ids, nb, sentinel=99)
+        pv, pi = ops.fold_partials_plain(vals, rows, ids, nb, sentinel=99)
+        assert int(ki) == int(pi)
+        if nan_wins:       # one virtual block: its NaN is the result
+            assert np.isnan(float(kv)) and np.isnan(float(pv))
+        else:              # blocks (-0.0, 0), NaN, (0.0, 6): -0.0 wins
+            assert float(kv) == float(pv) == 0.0 and int(ki) == 0
+            assert np.signbit(float(kv)) and np.signbit(float(pv))
 
 
 def _bits(shape, seed, dev):

@@ -76,6 +76,18 @@ def test_every_kernel_package_is_covered(name):
     assert all((lib.csrc / s).is_file() for s in lib.sources)
 
 
+@pytest.mark.parametrize("name", KERNELS)
+def test_every_kernel_wrapper_imports_first(name):
+    """A kernel's wrapper module imports in a fresh interpreter before any
+    other module of the port (``core`` imports the popstep wrapper while
+    that wrapper's own imports are still running)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c",
+                    f"import repro_torch.kernels.{name}.ops"], env=env,
+                   cwd=ROOT, capture_output=True, text=True, timeout=120,
+                   check=True)
+
+
 ZOO = ("repro_torch.configs", "repro_torch.configs.qwen2_1_5b",
        "repro_torch.models", "repro_torch.models.layers",
        "repro_torch.models.attention", "repro_torch.models.blocks",
