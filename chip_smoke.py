@@ -21,9 +21,10 @@ Phases (any failure exits non-zero; none is caught):
              the remote-sensing MLP, those values bitwise against the
              kernel with every hidden unit recomputed;
 3. fold    — the cross-block rule the kernel applies in its last block,
-             launched alone (``ops.fold_partials``, uncounted) vs the
-             plain rule on partials of every main-path step's shape and on
-             crafted partials holding NaNs, ties, signed zeros and
+             launched alone (``ops.fold_partials``, counted in
+             ``ops.fold_launches``, which the main path reads as 0) vs
+             the plain rule on partials of every main-path step's shape
+             and on crafted partials holding NaNs, ties, signed zeros and
              all-+inf blocks;
 4. main    — ``solve(remote_sensing, Distributed(inner="popstep"))`` on
              the device driver and ``solve(rastrigin n=9,
@@ -34,13 +35,19 @@ Phases (any failure exits non-zero; none is caught):
              PyTorch on the card), whose history must match step for
              step unless a step's two winners are a near-tie;
 5. packed  — the packed-word kernels vs their plain versions, bitwise:
-             ``generate_population_packed`` (graycode) at N = 9..2,720,
-             ``decode_packed`` (fixedpoint) at 1..32 bits and at the
-             remote-sensing encoding, ``population_min`` (popmin, two
-             launches) at P = 17..2^20 with a late NaN and ties, the
-             shapes of the main path below among them; the popmin fold
-             alone on crafted partials; each timed at the
-             remote-sensing shape; then their main path: generate ->
+             ``generate_population_packed`` (graycode) at N = 9..2,720
+             (odd and even W), ``graycode_children`` on a subset of the
+             children at an N near the kernel's shared-memory budget,
+             ``decode_packed`` (fixedpoint) at 1..32 bits (both of its
+             paths, output rows off 16-byte boundaries), at the
+             remote-sensing encoding, at populations past one grid wave
+             and with rows too long to stage, ``population_min``
+             (popmin, two launches) at P = 17..2^20 with a late NaN and
+             ties, the shapes of the main path below among them; the
+             popmin fold alone on crafted partials; each timed at the
+             remote-sensing shape, graycode and fixedpoint also at
+             rastrigin n=9, 16 bits, and graycode at N = 1 (a
+             near-empty launch); then their main path: generate ->
              decode -> objective -> ``population_min`` for a few DGO
              steps at remote_sensing and at rastrigin n=9, 16 bits,
              with the four launch counts set to 0 before and read
@@ -753,9 +760,21 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
 
 # the listed shapes, and the packed main path's own: N = 144, (9 vars,
 # 16 bits) and P = 287 (rastrigin n=9 at 16 bits), N = 2,720, (680, 4) and
-# P = 5,439 (remote_sensing)
-GRAY_NS = (9, 32, 63, 100, 128, 144, 257, 680, 2720)
-FIX_SHAPES = ((2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (9, 16), (5, 32))
+# P = 5,439 (remote_sensing).  graycode: even and odd W (1,100: W = 35),
+# 12,100 (W = 379: the blocks of the persistent grid walk more than one
+# span each), and a subset of the children (first, last, random; an odd
+# count) at GRAY_LIMIT_N, odd W = 12,287 and a partial last word, next to
+# the kernel's shared-memory budget (ops.MAX_SMEM, 12,288 words).
+# fixedpoint: the word path (bits dividing 32) at 9 vars, whose output rows
+# start off 16-byte boundaries, the field path at 7 and 6 bits, and FIX_POPS:
+# (n_vars, bits, P) at populations past one wave of the card's blocks, and
+# with rows longer than the kernel stages (12,288 words: read in place).
+GRAY_NS = (9, 32, 63, 100, 128, 144, 257, 680, 1100, 2720, 12100)
+GRAY_LIMIT_N, GRAY_LIMIT_K = 393_180, 255
+FIX_SHAPES = ((2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (9, 16), (5, 32),
+              (9, 1), (9, 2), (9, 4), (9, 8), (9, 32))
+FIX_POPS = ((9, 16, 1_000_000), (9, 7, 1_000_000), (680, 4, 20_000),
+            (13_000, 32, 9), (60_000, 7, 9))
 POPMIN_PS = (17, 125, 287, 1000, 4096, 5439, 10000, 2**20)
 POPMIN_FOLD_KS = (1, 6, 10, 1024)   # partials: P = 287, 5,439, 10,000, 2^20
 PACKED_STEPS = 4        # DGO steps of the packed main path per problem
@@ -775,7 +794,8 @@ def _max_abs(a, b) -> float:
 
 def check_graycode(rng, dev) -> float:
     """The graycode kernel vs its plain version and the unpacked oracle,
-    bitwise, at every N of ``GRAY_NS``."""
+    bitwise, at every N of ``GRAY_NS``, and on ``GRAY_LIMIT_K`` of the
+    children at ``GRAY_LIMIT_N``."""
     import torch
 
     from repro_torch.core.population import table_on
@@ -796,22 +816,45 @@ def check_graycode(rng, dev) -> float:
         err = max(err, _max_abs(got, plain))
         print(f"[packed] graycode   N={n:<5} {tuple(got.shape)} words == "
               f"plain == oracle, bitwise")
+    n, k = GRAY_LIMIT_N, GRAY_LIMIT_K
+    parent = _bits_on(rng, n, dev)
+    ids = torch.as_tensor(np.concatenate([
+        np.arange(64), np.arange(2 * n - 65, 2 * n - 1),
+        rng.choice(np.arange(64, 2 * n - 65), k - 128, replace=False)]),
+        device=dev)
+    table = table_on("table", n, dev)[ids]
+    got = ops.graycode_children(parent, table[:, 0], table[:, 1])
+    plain = ops.graycode_children_plain(parent, table[:, 0], table[:, 1])
+    oracle = ref.graycode_children_ref(parent, ids, (n + 31) // 32)
+    check(torch.equal(got, plain) and torch.equal(got, oracle),
+          f"graycode N={n}, {k} children: kernel differs from the plain "
+          f"version or the oracle")
+    err = max(err, _max_abs(got, plain))
+    print(f"[packed] graycode   N={n} {k} of its children "
+          f"{tuple(got.shape)} words == plain == oracle, bitwise")
     return err
 
 
 def check_fixedpoint(rng, dev) -> float:
     """The fixedpoint kernel vs its plain version and the unpacked
-    oracle, bitwise, at the shapes of ``FIX_SHAPES`` on [-3, 7] and at the
-    remote-sensing encoding."""
+    oracle, bitwise, at the shapes of ``FIX_SHAPES`` on [-3, 7], at the
+    remote-sensing encoding and at the populations of ``FIX_POPS``."""
     import torch
 
     from repro_torch.core.encoding import Encoding, pack_bits
     from repro_torch.kernels.fixedpoint import ops, ref
 
     err = 0.0
-    encs = [Encoding(nv, b, -3.0, 7.0) for nv, b in FIX_SHAPES]
-    for enc in encs + [Encoding(680, 4, -4.0, 4.0)]:
-        words = pack_bits(_bits_on(rng, (enc.population, enc.n_bits), dev))
+    cases = [(Encoding(nv, b, -3.0, 7.0), None) for nv, b in FIX_SHAPES]
+    cases += [(Encoding(680, 4, -4.0, 4.0), None)]
+    cases += [(Encoding(nv, b, -3.0, 7.0), p) for nv, b, p in FIX_POPS]
+    for enc, pop in cases:
+        if pop is None:
+            pop = enc.population
+            words = pack_bits(_bits_on(rng, (pop, enc.n_bits), dev))
+        else:   # whole random words: the bits past n_bits are ignored
+            words = torch.as_tensor(rng.integers(
+                0, 2**32, (pop, (enc.n_bits + 31) // 32)), device=dev)
         got = ops.decode_packed(words, enc)
         plain = ops.decode_words_plain(words, enc)
         oracle = ref.fixedpoint_decode_ref(words, enc)
@@ -821,7 +864,7 @@ def check_fixedpoint(rng, dev) -> float:
                   f"fixedpoint {enc}: kernel differs from the {label}")
         err = max(err, _max_abs(got, plain))
         print(f"[packed] fixedpoint {enc.n_vars:>3} vars x {enc.bits:>2} "
-              f"bits on [{enc.lo:g}, {enc.hi:g}], {enc.population} rows "
+              f"bits on [{enc.lo:g}, {enc.hi:g}], {pop} rows "
               f"== plain == oracle, bitwise")
     return err
 
@@ -903,10 +946,13 @@ def check_popmin_fold(rng, dev) -> float:
 
 def time_packed(dev, rs_enc, rs_obj) -> dict:
     """Device times (``torch.profiler``, mean of 20) of the three kernels
-    and their plain versions at the remote-sensing shape; popmin also at
-    P = 2^20, with ``torch.min(vals, dim=0)`` as its library call."""
+    and their plain versions at the remote-sensing shape; graycode and
+    fixedpoint also at rastrigin n=9, 16 bits, and graycode at N = 1;
+    popmin also at P = 2^20, with ``torch.min(vals, dim=0)`` as its library
+    call."""
     import torch
 
+    from repro_torch.core import objectives
     from repro_torch.core.population import table_on
     from repro_torch.kernels._plain import nan_first_rows
     from repro_torch.kernels.fixedpoint import ops as fops
@@ -930,6 +976,21 @@ def time_packed(dev, rs_enc, rs_obj) -> dict:
                                 20, dev, name="fixedpoint_kernel")
     t["fixedpoint_plain"] = device_ms(
         lambda: fops.decode_words_plain(words, rs_enc), 20, dev)
+    # the packed main path's other shape, rastrigin n=9 at 16 bits (287 x 5
+    # words), and a near-empty launch: graycode at N = 1 (one word)
+    r_enc = objectives.get("rastrigin", n=9).encoding.with_bits(16)
+    r_parent = _bits_on(np.random.default_rng(13), r_enc.n_bits, dev)
+    r_words = gops.generate_population_packed(r_parent)
+    one = _bits_on(np.random.default_rng(14), 1, dev)
+    t["graycode_rastrigin"] = device_ms(
+        lambda: gops.generate_population_packed(r_parent), 20, dev,
+        name="graycode_kernel")
+    t["fixedpoint_rastrigin"] = device_ms(
+        lambda: fops.decode_packed(r_words, r_enc), 20, dev,
+        name="fixedpoint_kernel")
+    t["graycode_empty"] = device_ms(
+        lambda: gops.generate_population_packed(one), 20, dev,
+        name="graycode_kernel")
     for key, v in (("", vals), ("_big", big)):
         t["popmin" + key] = device_ms(lambda: mops.population_min(v), 20,
                                       dev, name="popmin_partials")
@@ -955,6 +1016,12 @@ def time_packed(dev, rs_enc, rs_obj) -> dict:
           f"{t['popmin']:.4f} + fold {t['popmin_fold']:.4f} ms (plain "
           f"{t['popmin_plain']:.4f}, torch.min {t['popmin_library']:.4f}); "
           f"device time, mean of 20")
+    print(f"[time] rastrigin n=9 16 bits ({r_enc.population} children x "
+          f"{r_words.shape[1]} words): graycode "
+          f"{t['graycode_rastrigin']:.4f} ms, fixedpoint "
+          f"{t['fixedpoint_rastrigin']:.4f} ms; graycode at N=1 (a "
+          f"near-empty launch) {t['graycode_empty']:.4f} ms; device time, "
+          f"mean of 20")
     print(f"[time] popmin P=2^20: partials {t['popmin_big']:.4f} + fold "
           f"{t['popmin_fold_big']:.4f} ms (plain {t['popmin_plain_big']:.4f}"
           f", torch.min {t['popmin_library_big']:.4f}); device time")

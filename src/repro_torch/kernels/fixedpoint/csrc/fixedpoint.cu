@@ -4,29 +4,44 @@
 // Replaces repro/kernels/fixedpoint/kernel.py:fixedpoint_decode (the Pallas
 // TPU kernel behind repro.kernels.fixedpoint.ops.decode_packed).  Variable v
 // is the bits-wide MSB-first field at string bit v * bits; it may straddle
-// two words, and bits runs up to 32.  The field is rebuilt as the TPU kernel
-// rebuilds it: the word-0 part shifted into place, OR the spill from word 1,
-// with every shift kept inside [0, 31] on 32-bit values or done on 64 bits
-// (a shift by 32 of a 32-bit value is undefined in C++).  The decode is
-// dgo::decode_level, lo + level * scale with the multiply and the add
-// rounded separately.  The TPU kernel's decode contracts into an FMA and
-// differs from its own oracle by 1 ulp on 40-50 % of points; this one equals
-// the oracle (repro/kernels/fixedpoint/ref.py) bit for bit.
+// two words, and bits runs up to 32.  The decode is dgo::decode_level,
+// lo + level * scale with the multiply and the add rounded separately.  The
+// TPU kernel's decode contracts into an FMA and differs from its own oracle
+// by 1 ulp on 40-50 % of points; this one equals the oracle
+// (repro/kernels/fixedpoint/ref.py) bit for bit.
 //
 // Word layout (repro_torch/core/encoding.py pack_bits): string bit i in
-// word i / 32 at bit 31 - i % 32; uint32 values stored as int64, read
-// directly (the low 32 bits of each).
+// word i / 32 at bit 31 - i % 32; uint32 values stored as int64, of which
+// the low 32 bits are read.
 //
 // What bounds it: bytes.  It reads P x W int64 words and writes P x n_vars
 // float32 (3.70 MB and 14.79 MB at the remote-sensing shape, ~5.5 us at
 // 3.35 TB/s) for two float operations and a few integer ones per output.
-// One thread per output value, neighbouring threads on neighbouring
-// variables of one child, so the writes are coalesced and the word reads
-// of a warp fall on a few neighbouring words.
+// The design spends no division and no word load per output:
+//  * a block takes a run of whole child rows, one contiguous range of
+//    words, and stages it into shared memory as uint32 with 16-byte loads
+//    (a scalar head where the range starts 8 bytes off a 16-byte boundary,
+//    a scalar tail): every word is read from device memory once;
+//  * a group of 2^group_shift threads (a warp, or fewer for short rows)
+//    takes a row, its threads take the row's points, neighbouring threads
+//    on neighbouring points, so a warp's 4-byte stores cover 128
+//    contiguous bytes; 32-bit indices, shifts, no division;
+//  * where bits divides 32 (1, 2, 4, 8, 16, 32) no field straddles a word:
+//    fixedpoint_kernel<bits> takes the field from one word with constant
+//    shifts; other widths (fixedpoint_kernel<0>) rebuild it as the word-0
+//    part shifted into place, OR the spill from word 1.
+// Stores: 16-byte float4 stores of four points a thread were slower on an
+// H100 (tools/probe_packed.py: 0.0072 against 0.0058 ms at the
+// remote-sensing shape, 0.0020 against 0.0015 at rastrigin n=9, 16 bits),
+// so each thread writes its points one by one.  A row longer than
+// kMaxStagedWords (48 KB of words) is not staged: its words are read from
+// device memory where they are used.
 //
 // Built by kernel.py (through kernels/_build.py) with nvcc for sm_90a (no
 // --use_fast_math) into a shared library with a plain C interface; the entry
 // point launches on the caller's stream and returns cudaGetLastError().
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -37,31 +52,103 @@ namespace fixedpoint {
 using namespace dgo;
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1 << 20;   // grid-stride beyond this
+constexpr int kMaxStagedWords = 12 * 1024;  // 48 KB: no opt-in needed
 
-__global__ void __launch_bounds__(kThreads)
-    fixedpoint_kernel(const long long* words, int n_rows, int n_words,
-                      int n_vars, int bits, float lo, float scale,
-                      float* out) {
-  const long long total = static_cast<long long>(n_rows) * n_vars;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < total; i += stride) {
-    const long long p = i / n_vars;
-    const int v = static_cast<int>(i - p * n_vars);
+struct Shape {
+  int n_rows, n_words, n_vars, bits;
+  int rows_per_block;   // one a group, fewer where the words are many
+  int group_shift;      // log2 of the threads that share a row
+  bool staged;          // words in shared memory (else read in place)
+  float lo, scale;
+};
+
+// The block's n words (one contiguous run of whole rows) -> shared memory,
+// as uint32, 16 bytes a load.
+__device__ __forceinline__ void stage(const long long* src, int n,
+                                      unsigned* sm) {
+  const int head =
+      min(static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 3) & 1), n);
+  const int pairs = (n - head) >> 1;
+  const longlong2* v = reinterpret_cast<const longlong2*>(src + head);
+  if (threadIdx.x == 0 && head) sm[0] = static_cast<unsigned>(__ldg(src));
+  if (threadIdx.x == kThreads - 1 && ((n - head) & 1))
+    sm[n - 1] = static_cast<unsigned>(__ldg(src + n - 1));
+#pragma unroll 4
+  for (int i = threadIdx.x; i < pairs; i += kThreads) {
+    const longlong2 x = __ldg(v + i);
+    sm[head + 2 * i] = static_cast<unsigned>(x.x);
+    sm[head + 2 * i + 1] = static_cast<unsigned>(x.y);
+  }
+}
+
+// Word w of the block's row r.
+struct Words {
+  const unsigned* sm;
+  const long long* g;
+  int n_words;
+  bool staged;
+  __device__ __forceinline__ unsigned operator()(int r, int w) const {
+    return staged ? sm[r * n_words + w]
+                  : static_cast<unsigned>(
+                        g[static_cast<size_t>(r) * n_words + w]);
+  }
+};
+
+// Level of variable v of the block's row r.  kBits divides 32: the field
+// lies inside word v / (32 / kBits), every shift but the field's place a
+// constant.  kBits = 0, any width: the word-0 part of the field shifted
+// into place, OR the spill from word 1, every shift kept inside [0, 31] on
+// 32-bit values or done on 64 bits (a shift by 32 of a 32-bit value is
+// undefined in C++).
+template <int kBits>
+__device__ __forceinline__ unsigned level_of(const Words& words, int r, int v,
+                                            int bits) {
+  if constexpr (kBits == 32) {
+    return words(r, v);
+  } else if constexpr (kBits != 0) {
+    constexpr unsigned K = 32 / kBits;            // fields a word
+    const unsigned word = words(r, static_cast<unsigned>(v) / K);
+    const int place = static_cast<int>(static_cast<unsigned>(v) % K);
+    return (word >> (32 - kBits - kBits * place)) & ((1u << kBits) - 1u);
+  } else {
     const int s0 = v * bits;
     const int w0 = s0 >> 5;
     const int off = s0 & 31;
-    const long long* row = words + p * n_words;
-    const unsigned long long word0 = static_cast<unsigned>(row[w0]);
+    const unsigned long long word0 = words(r, w0);
     // the word-0 part of the field, already shifted left by the bits that
     // spill into word 1
     unsigned level =
         static_cast<unsigned>(((word0 << off) & 0xffffffffull) >> (32 - bits));
     const int need = off + bits;
-    if (need > 32) level |= static_cast<unsigned>(row[w0 + 1]) >> (64 - need);
-    out[i] = decode_level(level, lo, scale);
+    if (need > 32) level |= words(r, w0 + 1) >> (64 - need);
+    return level;
+  }
+}
+
+// kBits: the width when it divides 32, else 0 (any width).
+template <int kBits>
+__global__ void __launch_bounds__(kThreads)
+    fixedpoint_kernel(const long long* __restrict__ words, Shape s,
+                      float* __restrict__ out) {
+  extern __shared__ unsigned sm_words[];
+  const int row0 = blockIdx.x * s.rows_per_block;
+  const int rows = min(s.rows_per_block, s.n_rows - row0);
+  const long long* src = words + static_cast<size_t>(row0) * s.n_words;
+  float* dst = out + static_cast<size_t>(row0) * s.n_vars;
+  if (s.staged) {
+    stage(src, rows * s.n_words, sm_words);
+    __syncthreads();
+  }
+  const Words w{sm_words, src, s.n_words, s.staged};
+  // a row to each group of g threads, neighbouring threads on neighbouring
+  // points: a warp's store covers 128 contiguous bytes
+  const int g = 1 << s.group_shift;
+  for (int r = threadIdx.x >> s.group_shift; r < rows;
+       r += kThreads >> s.group_shift) {
+    float* row_out = dst + static_cast<size_t>(r) * s.n_vars;
+    for (int v = threadIdx.x & (g - 1); v < s.n_vars; v += g)
+      row_out[v] = decode_level(level_of<kBits>(w, r, v, s.bits), s.lo,
+                                s.scale);
   }
 }
 
@@ -74,11 +161,30 @@ int fixedpoint_decode(const long long* words, int n_rows, int n_words,
                       int n_vars, int bits, float lo, float scale, float* out,
                       void* stream) {
   using namespace fixedpoint;
-  const long long total = static_cast<long long>(n_rows) * n_vars;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-  fixedpoint_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      words, n_rows, n_words, n_vars, bits, lo, scale, out);
+  // a row's group: a thread for each point of the row, up to a warp; a
+  // block: a row for each group, fewer where the words are many
+  int shift = 0;
+  while ((1 << shift) < n_vars && shift < 5) ++shift;
+  const bool staged = n_words <= kMaxStagedWords;
+  long long rows = kThreads >> shift;
+  if (staged && rows * n_words > kMaxStagedWords)
+    rows = kMaxStagedWords / n_words;
+  const Shape s{n_rows, n_words, n_vars, bits, static_cast<int>(rows),
+                shift, staged, lo, scale};
+  const int grid = static_cast<int>((n_rows + rows - 1) / rows);
+  const size_t smem =
+      s.staged ? sizeof(unsigned) * s.rows_per_block * n_words : 0;
+  void (*kernel)(const long long*, Shape, float*) = fixedpoint_kernel<0>;
+  switch (32 % bits == 0 ? bits : 0) {
+    case 1: kernel = fixedpoint_kernel<1>; break;
+    case 2: kernel = fixedpoint_kernel<2>; break;
+    case 4: kernel = fixedpoint_kernel<4>; break;
+    case 8: kernel = fixedpoint_kernel<8>; break;
+    case 16: kernel = fixedpoint_kernel<16>; break;
+    case 32: kernel = fixedpoint_kernel<32>; break;
+  }
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      words, s, out);
   return static_cast<int>(cudaGetLastError());
 }
 

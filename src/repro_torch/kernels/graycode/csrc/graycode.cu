@@ -20,10 +20,24 @@
 // What bounds it: bytes.  It writes (2N-1) x W int64 words (3.70 MB at
 // N = 2,720) and reads N parent bytes and two int32 bounds per child: about
 // 1.1 us at 3.35 TB/s; a handful of integer operations per word are far
-// below the card's rate.  Each thread block first packs the parent's words
-// into shared memory (W words from N bytes, L2-resident), then its threads
-// write a contiguous run of whole children (about ops.ROW_WORDS words),
-// neighbouring threads on neighbouring words.
+// below the card's rate.  The design:
+//  * a persistent grid, as many blocks as the card holds at once (from the
+//    occupancy API) and no more than the rows need, so the prologue is paid
+//    once a block and the blocks walk the rows;
+//  * the prologue packs the parent's W words into shared memory: a thread
+//    loads 16 bytes, turns each 4 into a nibble with one multiply, and
+//    joins its neighbour's half-word by a shuffle; bytes at or past N read
+//    as 0.  Warp ballots on one byte a lane (85 loads of 32 bytes a block
+//    at N = 2,720, against 6 of 512) took 0.0038 ms where this takes
+//    0.0028 on an H100 (tools/probe_packed.py);
+//  * a span is one row when W is even, two rows when W is odd, so that a
+//    span starts on a 16-byte boundary and holds whole word pairs: a group
+//    of 2^group_shift threads (up to a warp) takes a span, its threads take
+//    word pairs and write each as one 16-byte store (two int64), a scalar
+//    store for a lone last word;
+//  * a span's (start, end) bounds are loaded once, the first span's before
+//    the prologue so the two loads overlap; a word's row is a comparison
+//    with W, so nothing is divided per word.
 //
 // Built by kernel.py (through kernels/_build.py) with nvcc for sm_90a into a
 // shared library with a plain C interface; the entry point launches on the
@@ -40,34 +54,101 @@ using namespace dgo;
 constexpr int kThreads = 256;
 constexpr unsigned kEvenBits = 0xaaaaaaaau;  // even_positions(32)
 
+struct Span {
+  int rows;          // 1 or 2 valid rows
+  int s0, e0, s1, e1;
+};
+
+__device__ __forceinline__ Span load_span(const int* starts, const int* ends,
+                                          int r0, int span_rows, int n_rows) {
+  Span sp{min(span_rows, n_rows - r0), starts[r0], ends[r0], 0, 0};
+  if (sp.rows > 1) {
+    sp.s1 = starts[r0 + 1];
+    sp.e1 = ends[r0 + 1];
+  }
+  return sp;
+}
+
+// Four 0/1 bytes (the first in the low byte) -> a nibble, the first byte
+// its top bit: the product puts byte k's bit at bit 27 - k and no two
+// partial products share a bit, so nothing carries into bits 24-27.
+__device__ __forceinline__ unsigned nibble(unsigned four_bytes) {
+  return (four_bytes * 0x08040201u) >> 24 & 15u;
+}
+
+// String bits [j0, j0 + 16) -> a half-word, MSB first; bits at or past N
+// read as 0.  `parent` is 16-byte aligned.
+__device__ __forceinline__ unsigned pack16(const signed char* parent, int j0,
+                                           int n_bits) {
+  if (j0 + 16 <= n_bits) {
+    const uint4 q = *reinterpret_cast<const uint4*>(parent + j0);
+    return nibble(q.x) << 12 | nibble(q.y) << 8 | nibble(q.z) << 4 |
+           nibble(q.w);
+  }
+  unsigned half = 0u;
+  for (int t = 0; t < 16 && j0 + t < n_bits; ++t)
+    half |= static_cast<unsigned>(parent[j0 + t] != 0) << (15 - t);
+  return half;
+}
+
+// Word x of a span (x >= W: the span's second row).
+__device__ __forceinline__ unsigned child_word(const unsigned* parent_words,
+                                               int x, int n_words, int n_bits,
+                                               const Span& sp) {
+  const bool second = x >= n_words;
+  const int w = second ? x - n_words : x;
+  unsigned word = child_level(parent_words[w], w, 32, second ? sp.s1 : sp.s0,
+                              second ? sp.e1 : sp.e0, kEvenBits);
+  // keep the word's first `valid` string bits: pad bits stay zero
+  const int valid = min(max(n_bits - 32 * w, 0), 32);
+  return word & static_cast<unsigned>(~((1ull << (32 - valid)) - 1ull));
+}
+
 __global__ void __launch_bounds__(kThreads)
     graycode_kernel(const signed char* parent, int n_bits, int n_words,
                     const int* starts, const int* ends, int n_rows,
-                    int rows_per_block, long long* out) {
+                    int group_shift, long long* out) {
   extern __shared__ unsigned parent_words[];
-  for (int w = threadIdx.x; w < n_words; w += kThreads) {
-    unsigned word = 0u;
-    for (int t = 0; t < 32; ++t) {
-      const int j = 32 * w + t;
-      word = (word << 1) |
-             (j < n_bits ? static_cast<unsigned>(parent[j]) : 0u);
-    }
-    parent_words[w] = word;
+  const int span_rows = (n_words & 1) + 1;
+  const int span_words = span_rows * n_words;
+  const int n_spans = (n_rows + span_rows - 1) >> (span_rows - 1);
+  const int sub = threadIdx.x & ((1 << group_shift) - 1);
+  const int stride = gridDim.x * (kThreads >> group_shift);
+  int span = blockIdx.x * (kThreads >> group_shift) +
+             (threadIdx.x >> group_shift);
+  Span sp{};
+  if (span < n_spans)
+    sp = load_span(starts, ends, span * span_rows, span_rows, n_rows);
+
+  // the parent's words: thread p packs string bits [16p, 16p + 16) from
+  // one 16-byte load, its neighbour's half-word joins it by a shuffle
+  const int lane = threadIdx.x & 31;
+  for (int base = threadIdx.x & ~31; base < 2 * n_words; base += kThreads) {
+    const int p = base + lane;
+    const unsigned half = pack16(parent, 16 * p, n_bits);
+    const unsigned low = __shfl_down_sync(kFullMask, half, 1);
+    if (!(lane & 1) && p < 2 * n_words)
+      parent_words[p >> 1] = half << 16 | low;
   }
   __syncthreads();
 
-  const int row0 = blockIdx.x * rows_per_block;
-  const int total = min(rows_per_block, n_rows - row0) * n_words;
-  long long* block_out = out + static_cast<size_t>(row0) * n_words;
-  for (int k = threadIdx.x; k < total; k += kThreads) {
-    const int r = k / n_words;
-    const int w = k - r * n_words;
-    unsigned word = child_level(parent_words[w], w, 32, starts[row0 + r],
-                                ends[row0 + r], kEvenBits);
-    // keep the word's first `valid` string bits: pad bits stay zero
-    const int valid = min(max(n_bits - 32 * w, 0), 32);
-    word &= static_cast<unsigned>(~((1ull << (32 - valid)) - 1ull));
-    block_out[k] = static_cast<long long>(word);
+  for (; span < n_spans; span += stride) {
+    const int r0 = span * span_rows;
+    const int valid = sp.rows * n_words;
+    // r0 * W is even, so the span starts on a 16-byte boundary
+    long long* dst = out + static_cast<size_t>(r0) * n_words;
+    for (int x = 2 * sub; x < span_words; x += 2 << group_shift) {
+      if (x + 1 < valid) {
+        *reinterpret_cast<longlong2*>(dst + x) = make_longlong2(
+            child_word(parent_words, x, n_words, n_bits, sp),
+            child_word(parent_words, x + 1, n_words, n_bits, sp));
+      } else if (x < valid) {
+        dst[x] = child_word(parent_words, x, n_words, n_bits, sp);
+      }
+    }
+    if (span + stride < n_spans)
+      sp = load_span(starts, ends, (span + stride) * span_rows, span_rows,
+                     n_rows);
   }
 }
 
@@ -76,16 +157,33 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // (n_rows, n_words) int64 children of the parent's 0/1 bit string, child r
-// inverting Gray segment [starts[r], ends[r]).  Dynamic shared memory:
-// n_words * 4 bytes.
+// inverting Gray segment [starts[r], ends[r]); `parent` and `out` 16-byte
+// aligned.
+// Dynamic shared memory: n_words * 4 bytes.
 int graycode_children(const signed char* parent, int n_bits, int n_words,
                       const int* starts, const int* ends, int n_rows,
-                      int rows_per_block, long long* out, void* stream) {
+                      long long* out, void* stream) {
   using namespace graycode;
-  const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
-  graycode_kernel<<<grid, kThreads, sizeof(unsigned) * n_words,
-                    static_cast<cudaStream_t>(stream)>>>(
-      parent, n_bits, n_words, starts, ends, n_rows, rows_per_block, out);
+  const int span_rows = (n_words & 1) + 1;
+  const int span_pairs = span_rows * n_words / 2;
+  int shift = 0;
+  while ((1 << shift) < span_pairs && shift < 5) ++shift;
+  const long long n_spans =
+      (static_cast<long long>(n_rows) + span_rows - 1) / span_rows;
+  const long long groups = kThreads >> shift;
+  const size_t smem = sizeof(unsigned) * n_words;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, graycode_kernel, kThreads, smem);
+  if (err) return static_cast<int>(err);
+  const long long need = (n_spans + groups - 1) / groups;
+  const long long held = static_cast<long long>(sms) * per_sm;
+  const int grid = static_cast<int>(need < held ? need : held);
+  graycode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      parent, n_bits, n_words, starts, ends, n_rows, shift, out);
   return static_cast<int>(cudaGetLastError());
 }
 

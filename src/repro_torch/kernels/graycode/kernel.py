@@ -13,7 +13,6 @@ _I = ctypes.c_int
 
 LIBRARY = Library("graycode", Path(__file__).resolve().with_name("csrc"),
                   ("graycode.cu",), {
-                      "graycode_children": (_P, _I, _I, _P, _P, _I, _I, _P,
-                                            _P),
+                      "graycode_children": (_P, _I, _I, _P, _P, _I, _P, _P),
                   })
 

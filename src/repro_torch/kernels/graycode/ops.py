@@ -6,7 +6,11 @@ parent and returns its 2N-1 children as (2N-1, W) words, W = ceil(N/32),
 in the layout of ``core.encoding.pack_bits`` (uint32 values held in
 int64, MSB-first, pad bits zero).
 
-Where the parent lives decides how it runs.  On a CUDA tensor the wrapper
+``graycode_children(parent_bits, starts, ends)`` is the kernel's own
+interface, as the TPU kernel's: the children of any (K,) Gray segments
+[start, end), e.g. a subset of the population's.
+
+Where the parent lives decides how they run.  On a CUDA tensor the wrapper
 launches ``graycode_kernel`` (``csrc/graycode.cu``) or raises; on a CPU
 tensor it runs :func:`graycode_children_plain`, the kernel's arithmetic
 with tensor operations.  No path falls back from one to the other.
@@ -23,8 +27,7 @@ from repro_torch.kernels._plain import child_levels
 
 launches = 0
 
-ROW_WORDS = 1024          # output words per thread block (whole children)
-MAX_SMEM = 48 * 1024      # static limit for the parent's words
+MAX_SMEM = 48 * 1024      # shared memory for the parent's words, no opt-in
 
 # the segment bounds as int32 on each device, per string length
 _BOUNDS = get_cache("graycode.bounds", maxsize=32)
@@ -54,7 +57,8 @@ def _bounds_on(n_bits: int, device: torch.device):
     return _BOUNDS.get((n_bits, str(device)), build)
 
 
-def _launch(parent_bits: torch.Tensor) -> torch.Tensor:
+def _launch(parent_bits: torch.Tensor, starts: torch.Tensor,
+            ends: torch.Tensor) -> torch.Tensor:
     global launches
     from repro_torch.kernels.graycode.kernel import LIBRARY
 
@@ -63,12 +67,15 @@ def _launch(parent_bits: torch.Tensor) -> torch.Tensor:
     if w * 4 > MAX_SMEM:
         raise ValueError(f"N={n} exceeds the kernel's shared-memory budget")
     dev = parent_bits.device
-    starts, ends = _bounds_on(n, dev)
     parent = parent_bits.to(torch.int8).contiguous()
-    out = torch.empty((2 * n - 1, w), dtype=torch.int64, device=dev)
+    if parent.data_ptr() % 16:      # the kernel loads 16 bytes at a time
+        parent = parent.clone()
+    starts = starts.to(device=dev, dtype=torch.int32).contiguous()
+    ends = ends.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty((starts.shape[0], w), dtype=torch.int64, device=dev)
     err = LIBRARY.load().graycode_children(
         parent.data_ptr(), n, w, starts.data_ptr(), ends.data_ptr(),
-        2 * n - 1, max(1, ROW_WORDS // w), out.data_ptr(),
+        starts.shape[0], out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"graycode launch failed: CUDA error {err}")
@@ -76,15 +83,28 @@ def _launch(parent_bits: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def graycode_children(parent_bits: torch.Tensor, starts: torch.Tensor,
+                      ends: torch.Tensor) -> torch.Tensor:
+    """(N,) int8 parent + (K,) Gray segments [start, end), K >= 1 ->
+    (K, W) int64 packed children."""
+    if parent_bits.dim() != 1 or parent_bits.shape[0] < 1:
+        raise ValueError(f"parent_bits must be (N,) with N >= 1, got "
+                         f"{tuple(parent_bits.shape)}")
+    if starts.dim() != 1 or starts.shape != ends.shape or not starts.numel():
+        raise ValueError(f"starts and ends must be (K,) with K >= 1, got "
+                         f"{tuple(starts.shape)} and {tuple(ends.shape)}")
+    if parent_bits.is_cuda:
+        return _launch(parent_bits, starts, ends)
+    if parent_bits.device.type != "cpu":
+        raise ValueError(f"graycode runs on CUDA or CPU tensors, got "
+                         f"{parent_bits.device}")
+    return graycode_children_plain(parent_bits, starts, ends)
+
+
 def generate_population_packed(parent_bits: torch.Tensor) -> torch.Tensor:
     """(N,) int8 parent -> (2N-1, W) int64 packed children."""
     if parent_bits.dim() != 1 or parent_bits.shape[0] < 1:
         raise ValueError(f"parent_bits must be (N,) with N >= 1, got "
                          f"{tuple(parent_bits.shape)}")
-    if parent_bits.is_cuda:
-        return _launch(parent_bits)
-    if parent_bits.device.type != "cpu":
-        raise ValueError(f"graycode runs on CUDA or CPU tensors, got "
-                         f"{parent_bits.device}")
-    table = table_on("table", parent_bits.shape[0], parent_bits.device)
-    return graycode_children_plain(parent_bits, table[:, 0], table[:, 1])
+    return graycode_children(
+        parent_bits, *_bounds_on(parent_bits.shape[0], parent_bits.device))

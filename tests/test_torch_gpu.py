@@ -231,7 +231,10 @@ def _bits(shape, seed, dev):
         0, 2, shape).astype(np.int8), device=dev)
 
 
-@pytest.mark.parametrize("n", [100, 2720])
+# W even (100: 4 words; 2048: 64) and odd (144: 5; 1100: 35; 2720: 85);
+# 12,100 (W = 379) takes the blocks of the persistent grid through more
+# than one span each
+@pytest.mark.parametrize("n", [100, 2720, 144, 1100, 2048, 12100])
 def test_graycode_kernel_matches_plain_version(cuda, n):
     parent = _bits(n, n, cuda)
     before = graycode.launches
@@ -242,11 +245,51 @@ def test_graycode_kernel_matches_plain_version(cuda, n):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n_vars,bits,lo,hi", [(680, 4, -4.0, 4.0),
-                                               (5, 32, -3.0, 7.0)])
-def test_fixedpoint_kernel_matches_plain_version(cuda, n_vars, bits, lo, hi):
+def test_graycode_kernel_at_its_shared_memory_budget(cuda):
+    """The largest parent the kernel takes (W = MAX_SMEM / 4 words, a
+    partial last word), on an odd number of its children."""
+    n = 32 * (graycode.MAX_SMEM // 4) - 5
+    parent = _bits(n, 5, cuda)
+    ids = torch.as_tensor(np.random.default_rng(6).choice(2 * n - 1, 63,
+                                                          replace=False))
+    table = table_on("table", n, cuda)[ids.to(cuda)]
+    before = graycode.launches
+    got = graycode.graycode_children(parent, table[:, 0], table[:, 1])
+    assert graycode.launches == before + 1
+    want = graycode.graycode_children_plain(parent, table[:, 0], table[:, 1])
+    assert got.shape == (63, n // 32 + 1) and torch.equal(got, want)
+
+
+def test_graycode_kernel_takes_an_unaligned_parent(cuda):
+    """A parent 1 byte off a 16-byte boundary (the kernel loads 16 bytes
+    at a time; the wrapper copies such a parent)."""
+    n = 2720
+    parent = _bits(n + 1, 7, cuda)[1:]
+    assert parent.data_ptr() % 16
+    table = table_on("table", n, cuda)
+    want = graycode.graycode_children_plain(parent, table[:, 0], table[:, 1])
+    assert torch.equal(graycode.generate_population_packed(parent), want)
+
+
+# the word path (bits dividing 32) at 9 vars, whose rows start off 16-byte
+# boundaries, the field path (7 and 6 bits), populations past one wave of
+# the card's blocks, and rows longer than the kernel stages (13,000 and
+# 13,125 words: read in place) (pop; None: the encoding's own)
+@pytest.mark.parametrize("n_vars,bits,lo,hi,pop", [
+    (680, 4, -4.0, 4.0, None), (5, 32, -3.0, 7.0, None),
+    (9, 1, -3.0, 7.0, None), (9, 8, -3.0, 7.0, None),
+    (9, 32, -3.0, 7.0, None), (9, 7, -3.0, 7.0, None),
+    (8, 6, -3.0, 7.0, None), (9, 16, -3.0, 7.0, 1_000_000),
+    (680, 4, -4.0, 4.0, 20_000), (13_000, 32, -3.0, 7.0, 9),
+    (60_000, 7, -3.0, 7.0, 9)])
+def test_fixedpoint_kernel_matches_plain_version(cuda, n_vars, bits, lo, hi,
+                                                 pop):
     enc = Encoding(n_vars, bits, lo, hi)
-    words = pack_bits(_bits((enc.population, enc.n_bits), bits, cuda))
+    if pop is None:
+        words = pack_bits(_bits((enc.population, enc.n_bits), bits, cuda))
+    else:
+        words = torch.as_tensor(np.random.default_rng(pop).integers(
+            0, 2**32, (pop, (enc.n_bits + 31) // 32)), device=cuda)
     before = fixedpoint.launches
     got = fixedpoint.decode_packed(words, enc)
     assert fixedpoint.launches == before + 1

@@ -50,7 +50,9 @@ def _bits(shape, seed):
 # graycode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n", [9, 32, 63, 100, 128, 257, 680])
+# W odd and even; 1,100 (W = 35) and 2,720 (W = 85, remote_sensing) are
+# odd W past the first few words
+@pytest.mark.parametrize("n", [9, 32, 63, 100, 128, 257, 680, 1100, 2720])
 def test_graycode_matches_reference_bitwise(n):
     parent = _bits(n, n)
     w = (n + 31) // 32
@@ -78,11 +80,42 @@ def test_graycode_plain_on_a_subset_of_children():
     assert torch.equal(got, tgray_ref.graycode_children_ref(parent, ids, 9))
 
 
+def test_graycode_children_at_the_shared_memory_budget():
+    """``graycode_children`` on a subset of the children (an odd count) of
+    the largest parent the kernel takes (W = MAX_SMEM / 4 words, a partial
+    last word) is the JAX oracle's."""
+    n = 32 * (tgray.MAX_SMEM // 4) - 5
+    parent = _bits(n, 5)
+    ids = np.random.default_rng(6).choice(2 * n - 1, 63, replace=False)
+    table = table_on("table", n, "cpu")[torch.as_tensor(ids)]
+    got = tgray.graycode_children(torch.as_tensor(parent), table[:, 0],
+                                  table[:, 1]).numpy()
+    want = np.asarray(gray_oracle(jnp.asarray(parent), jnp.asarray(ids),
+                                  (n + 31) // 32), np.int64)
+    assert got.shape == (63, n // 32 + 1) and np.array_equal(got, want)
+
+
+def test_graycode_children_rejects_what_the_kernel_does_not_take():
+    parent = torch.zeros(40, dtype=torch.int8)
+    with pytest.raises(ValueError, match="starts and ends"):
+        tgray.graycode_children(parent, torch.zeros(0, dtype=torch.int32),
+                                torch.zeros(0, dtype=torch.int32))
+    with pytest.raises(ValueError, match="starts and ends"):
+        tgray.graycode_children(parent, torch.zeros(3, dtype=torch.int32),
+                                torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="parent_bits"):
+        tgray.graycode_children(torch.zeros((2, 2), dtype=torch.int8),
+                                torch.zeros(3), torch.zeros(3))
+
+
 # ---------------------------------------------------------------------------
 # fixedpoint
 # ---------------------------------------------------------------------------
 
-FIX_SHAPES = [(2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (5, 32)]
+# the kernel's word path (bits dividing 32) at 9 vars, whose rows of
+# points start off 16-byte boundaries, and its field path (7 and 6 bits)
+FIX_SHAPES = [(2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (5, 32), (9, 1),
+              (9, 2), (9, 8), (9, 16), (9, 32)]
 
 
 @pytest.mark.parametrize("n_vars,bits", FIX_SHAPES)
@@ -120,6 +153,23 @@ def test_fixedpoint_straddling_fields_bitwise(n_vars, bits):
     for w in (words, words.to(torch.int32)):
         got = tfix.decode_packed(w, te)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_vars,bits,pop", [
+    (9, 16, 100_000), (9, 7, 100_000), (680, 4, 20_000), (60_000, 7, 9)])
+def test_fixedpoint_large_population_matches_reference(n_vars, bits, pop):
+    """Whole random words (bits past n_bits set) at populations past one
+    wave of the card's blocks, and rows longer than the kernel stages,
+    against the JAX oracle on the same uint32 words."""
+    te = tenc.Encoding(n_vars, bits, -3.0, 7.0)
+    je = jenc.Encoding(n_vars, bits, -3.0, 7.0)
+    words = np.random.default_rng(n_vars * bits).integers(
+        0, 2**32, (pop, (te.n_bits + 31) // 32))
+    got = tfix.decode_packed(torch.as_tensor(words), te).numpy()
+    oracle = np.asarray(jfix_ref.fixedpoint_decode_ref(
+        jnp.asarray(words.astype(np.uint32)), je))
+    assert got.shape == (pop, n_vars)
+    assert np.array_equal(got.view(np.int32), oracle.view(np.int32))
 
 
 def test_fixedpoint_rejects_what_the_kernel_does_not_take():
