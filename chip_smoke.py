@@ -761,18 +761,23 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
 # the listed shapes, and the packed main path's own: N = 144, (9 vars,
 # 16 bits) and P = 287 (rastrigin n=9 at 16 bits), N = 2,720, (680, 4) and
 # P = 5,439 (remote_sensing).  graycode: even and odd W (1,100: W = 35),
-# 12,100 (W = 379: the blocks of the persistent grid walk more than one
-# span each), and a subset of the children (first, last, random; an odd
-# count) at GRAY_LIMIT_N, odd W = 12,287 and a partial last word, next to
-# the kernel's shared-memory budget (ops.MAX_SMEM, 12,288 words).
-# fixedpoint: the word path (bits dividing 32) at 9 vars, whose output rows
-# start off 16-byte boundaries, the field path at 7 and 6 bits, and FIX_POPS:
-# (n_vars, bits, P) at populations past one wave of the card's blocks, and
-# with rows longer than the kernel stages (12,288 words: read in place).
+# 12,100 (W = 379: a warp's lanes walk a span's word pairs more than once),
+# and a subset of the children (first, last, random; an odd count) at
+# GRAY_LIMIT_N, odd W = 12,287 and a partial last word, next to the
+# kernel's shared-memory budget (ops.MAX_SMEM, 12,288 words).
+# fixedpoint: widths dividing 32 at 9 vars, whose output rows start off
+# 16-byte boundaries, straddling fields at 7 and 6 bits, rows of 1, 127,
+# 128 and 129 vars around a block's step of 128 points (its walk's carry
+# into the next row), and FIX_POPS: (n_vars, bits, P) at populations past
+# one wave of the card's blocks whose words are staged (9 x 16 bits: runs
+# of 2,275 words, odd, so every other block starts 8 bytes off a 16-byte
+# boundary), and with rows longer than the kernel stages (12,288 words:
+# read in place).
 GRAY_NS = (9, 32, 63, 100, 128, 144, 257, 680, 1100, 2720, 12100)
 GRAY_LIMIT_N, GRAY_LIMIT_K = 393_180, 255
 FIX_SHAPES = ((2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (9, 16), (5, 32),
-              (9, 1), (9, 2), (9, 4), (9, 8), (9, 32))
+              (9, 1), (9, 2), (9, 4), (9, 8), (9, 32), (1, 7), (127, 3),
+              (128, 2), (129, 1))
 FIX_POPS = ((9, 16, 1_000_000), (9, 7, 1_000_000), (680, 4, 20_000),
             (13_000, 32, 9), (60_000, 7, 9))
 POPMIN_PS = (17, 125, 287, 1000, 4096, 5439, 10000, 2**20)

@@ -14,7 +14,7 @@ _F = ctypes.c_float
 
 LIBRARY = Library("fixedpoint", Path(__file__).resolve().with_name("csrc"),
                   ("fixedpoint.cu",), {
-                      "fixedpoint_decode": (_P, _I, _I, _I, _I, _F, _F, _P,
-                                            _P),
+                      "fixedpoint_decode": (_P, _I, _I, _I, _I, _F, _F, _I,
+                                            _P, _P),
                   })
 

@@ -49,6 +49,7 @@ def _launch(words: torch.Tensor, enc: Encoding) -> torch.Tensor:
     lo = float(torch.tensor(enc.lo, dtype=torch.float32))
     err = LIBRARY.load().fixedpoint_decode(
         src.data_ptr(), p, w, enc.n_vars, enc.bits, lo, scale,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fixedpoint launch failed: CUDA error {err}")

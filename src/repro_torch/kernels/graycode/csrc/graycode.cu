@@ -21,23 +21,23 @@
 // N = 2,720) and reads N parent bytes and two int32 bounds per child: about
 // 1.1 us at 3.35 TB/s; a handful of integer operations per word are far
 // below the card's rate.  The design:
-//  * a persistent grid, as many blocks as the card holds at once (from the
-//    occupancy API) and no more than the rows need, so the prologue is paid
-//    once a block and the blocks walk the rows;
+//  * a group of 2^group_shift threads (up to a warp) takes a span: one
+//    row when W is even, two rows when W is odd, so that a span starts on
+//    a 16-byte boundary and holds whole word pairs.  Its threads take word
+//    pairs and write each as one 16-byte store (two int64), a scalar store
+//    for a lone last word.  The grid has a group for every span;
+//  * a span's (start, end) bounds are loaded once, before the prologue so
+//    the two overlap; a word's row is a comparison with W, so nothing is
+//    divided per word;
 //  * the prologue packs the parent's W words into shared memory: a thread
 //    loads 16 bytes, turns each 4 into a nibble with one multiply, and
 //    joins its neighbour's half-word by a shuffle; bytes at or past N read
-//    as 0.  Warp ballots on one byte a lane (85 loads of 32 bytes a block
-//    at N = 2,720, against 6 of 512) took 0.0038 ms where this takes
-//    0.0028 on an H100 (tools/probe_packed.py);
-//  * a span is one row when W is even, two rows when W is odd, so that a
-//    span starts on a 16-byte boundary and holds whole word pairs: a group
-//    of 2^group_shift threads (up to a warp) takes a span, its threads take
-//    word pairs and write each as one 16-byte store (two int64), a scalar
-//    store for a lone last word;
-//  * a span's (start, end) bounds are loaded once, the first span's before
-//    the prologue so the two loads overlap; a word's row is a comparison
-//    with W, so nothing is divided per word.
+//    as 0.
+// Measured against the alternatives (probe_packed.py, which builds them
+// from the -D switches below): warp ballots on one byte a lane for the
+// prologue (GRAYCODE_BALLOTS) and two 8-byte stores a pair
+// (GRAYCODE_SCALAR_STORES) were slower on an H100; GRAYCODE_NO_PROLOGUE
+// and GRAYCODE_NO_BODY (wrong output) time the two parts alone.
 //
 // Built by kernel.py (through kernels/_build.py) with nvcc for sm_90a into a
 // shared library with a plain C interface; the entry point launches on the
@@ -104,6 +104,40 @@ __device__ __forceinline__ unsigned child_word(const unsigned* parent_words,
   return word & static_cast<unsigned>(~((1ull << (32 - valid)) - 1ull));
 }
 
+// The parent's W words -> shared memory.
+__device__ __forceinline__ void pack_parent(const signed char* parent,
+                                            int n_bits, int n_words,
+                                            unsigned* parent_words) {
+  const int lane = threadIdx.x & 31;
+#ifndef GRAYCODE_BALLOTS
+  // thread p packs string bits [16p, 16p + 16) from one 16-byte load, its
+  // neighbour's half-word joins it by a shuffle
+  for (int base = threadIdx.x & ~31; base < 2 * n_words; base += kThreads) {
+    const int p = base + lane;
+    const unsigned half = pack16(parent, 16 * p, n_bits);
+    const unsigned low = __shfl_down_sync(kFullMask, half, 1);
+    if (!(lane & 1) && p < 2 * n_words)
+      parent_words[p >> 1] = half << 16 | low;
+  }
+#else
+  // a warp a word, a lane a byte, 16 bytes in flight a lane
+  for (int w0 = threadIdx.x >> 5; w0 < n_words; w0 += kThreads / 32 * 16) {
+    signed char b[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = 32 * (w0 + i * kThreads / 32) + lane;
+      b[i] = j < n_bits ? parent[j] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const unsigned word = __brev(__ballot_sync(kFullMask, b[i] != 0));
+      const int w = w0 + i * kThreads / 32;
+      if (lane == 0 && w < n_words) parent_words[w] = word;
+    }
+  }
+#endif
+}
+
 __global__ void __launch_bounds__(kThreads)
     graycode_kernel(const signed char* parent, int n_bits, int n_words,
                     const int* starts, const int* ends, int n_rows,
@@ -113,42 +147,36 @@ __global__ void __launch_bounds__(kThreads)
   const int span_words = span_rows * n_words;
   const int n_spans = (n_rows + span_rows - 1) >> (span_rows - 1);
   const int sub = threadIdx.x & ((1 << group_shift) - 1);
-  const int stride = gridDim.x * (kThreads >> group_shift);
-  int span = blockIdx.x * (kThreads >> group_shift) +
-             (threadIdx.x >> group_shift);
+  const int span = blockIdx.x * (kThreads >> group_shift) +
+                   (threadIdx.x >> group_shift);
+  const int r0 = span * span_rows;
   Span sp{};
-  if (span < n_spans)
-    sp = load_span(starts, ends, span * span_rows, span_rows, n_rows);
-
-  // the parent's words: thread p packs string bits [16p, 16p + 16) from
-  // one 16-byte load, its neighbour's half-word joins it by a shuffle
-  const int lane = threadIdx.x & 31;
-  for (int base = threadIdx.x & ~31; base < 2 * n_words; base += kThreads) {
-    const int p = base + lane;
-    const unsigned half = pack16(parent, 16 * p, n_bits);
-    const unsigned low = __shfl_down_sync(kFullMask, half, 1);
-    if (!(lane & 1) && p < 2 * n_words)
-      parent_words[p >> 1] = half << 16 | low;
-  }
+  if (span < n_spans) sp = load_span(starts, ends, r0, span_rows, n_rows);
+#ifndef GRAYCODE_NO_PROLOGUE
+  pack_parent(parent, n_bits, n_words, parent_words);
+#endif
   __syncthreads();
-
-  for (; span < n_spans; span += stride) {
-    const int r0 = span * span_rows;
-    const int valid = sp.rows * n_words;
-    // r0 * W is even, so the span starts on a 16-byte boundary
-    long long* dst = out + static_cast<size_t>(r0) * n_words;
-    for (int x = 2 * sub; x < span_words; x += 2 << group_shift) {
-      if (x + 1 < valid) {
-        *reinterpret_cast<longlong2*>(dst + x) = make_longlong2(
-            child_word(parent_words, x, n_words, n_bits, sp),
-            child_word(parent_words, x + 1, n_words, n_bits, sp));
-      } else if (x < valid) {
-        dst[x] = child_word(parent_words, x, n_words, n_bits, sp);
-      }
+#ifdef GRAYCODE_NO_BODY
+  if (threadIdx.x == 0) out[blockIdx.x] = parent_words[0];
+  return;
+#endif
+  if (span >= n_spans) return;
+  const int valid = sp.rows * n_words;
+  // r0 * W is even, so the span starts on a 16-byte boundary
+  long long* dst = out + static_cast<size_t>(r0) * n_words;
+  for (int x = 2 * sub; x < span_words; x += 2 << group_shift) {
+    if (x + 1 < valid) {
+#ifndef GRAYCODE_SCALAR_STORES
+      *reinterpret_cast<longlong2*>(dst + x) = make_longlong2(
+          child_word(parent_words, x, n_words, n_bits, sp),
+          child_word(parent_words, x + 1, n_words, n_bits, sp));
+#else
+      dst[x] = child_word(parent_words, x, n_words, n_bits, sp);
+      dst[x + 1] = child_word(parent_words, x + 1, n_words, n_bits, sp);
+#endif
+    } else if (x < valid) {
+      dst[x] = child_word(parent_words, x, n_words, n_bits, sp);
     }
-    if (span + stride < n_spans)
-      sp = load_span(starts, ends, (span + stride) * span_rows, span_rows,
-                     n_rows);
   }
 }
 
@@ -171,17 +199,8 @@ int graycode_children(const signed char* parent, int n_bits, int n_words,
   const long long n_spans =
       (static_cast<long long>(n_rows) + span_rows - 1) / span_rows;
   const long long groups = kThreads >> shift;
+  const int grid = static_cast<int>((n_spans + groups - 1) / groups);
   const size_t smem = sizeof(unsigned) * n_words;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         dev);
-  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, graycode_kernel, kThreads, smem);
-  if (err) return static_cast<int>(err);
-  const long long need = (n_spans + groups - 1) / groups;
-  const long long held = static_cast<long long>(sms) * per_sm;
-  const int grid = static_cast<int>(need < held ? need : held);
   graycode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       parent, n_bits, n_words, starts, ends, n_rows, shift, out);
   return static_cast<int>(cudaGetLastError());

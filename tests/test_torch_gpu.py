@@ -232,8 +232,8 @@ def _bits(shape, seed, dev):
 
 
 # W even (100: 4 words; 2048: 64) and odd (144: 5; 1100: 35; 2720: 85);
-# 12,100 (W = 379) takes the blocks of the persistent grid through more
-# than one span each
+# 12,100 (W = 379) takes a warp's lanes over a span's word pairs more than
+# once
 @pytest.mark.parametrize("n", [100, 2720, 144, 1100, 2048, 12100])
 def test_graycode_kernel_matches_plain_version(cuda, n):
     parent = _bits(n, n, cuda)
@@ -271,9 +271,10 @@ def test_graycode_kernel_takes_an_unaligned_parent(cuda):
     assert torch.equal(graycode.generate_population_packed(parent), want)
 
 
-# the word path (bits dividing 32) at 9 vars, whose rows start off 16-byte
-# boundaries, the field path (7 and 6 bits), populations past one wave of
-# the card's blocks, and rows longer than the kernel stages (13,000 and
+# widths dividing 32 at 9 vars, whose rows start off 16-byte boundaries,
+# straddling fields (7 and 6 bits), rows of 1, 127, 128 and 129 vars around
+# a block's step of 128 points, populations past one wave of the card's
+# blocks (staged), and rows longer than the kernel stages (13,000 and
 # 13,125 words: read in place) (pop; None: the encoding's own)
 @pytest.mark.parametrize("n_vars,bits,lo,hi,pop", [
     (680, 4, -4.0, 4.0, None), (5, 32, -3.0, 7.0, None),
@@ -281,7 +282,9 @@ def test_graycode_kernel_takes_an_unaligned_parent(cuda):
     (9, 32, -3.0, 7.0, None), (9, 7, -3.0, 7.0, None),
     (8, 6, -3.0, 7.0, None), (9, 16, -3.0, 7.0, 1_000_000),
     (680, 4, -4.0, 4.0, 20_000), (13_000, 32, -3.0, 7.0, 9),
-    (60_000, 7, -3.0, 7.0, 9)])
+    (60_000, 7, -3.0, 7.0, 9), (1, 7, -3.0, 7.0, None),
+    (127, 3, -3.0, 7.0, None), (128, 2, -3.0, 7.0, None),
+    (129, 1, -3.0, 7.0, None)])
 def test_fixedpoint_kernel_matches_plain_version(cuda, n_vars, bits, lo, hi,
                                                  pop):
     enc = Encoding(n_vars, bits, lo, hi)

@@ -112,10 +112,12 @@ def test_graycode_children_rejects_what_the_kernel_does_not_take():
 # fixedpoint
 # ---------------------------------------------------------------------------
 
-# the kernel's word path (bits dividing 32) at 9 vars, whose rows of
-# points start off 16-byte boundaries, and its field path (7 and 6 bits)
+# widths dividing 32 at 9 vars, whose rows of points start off 16-byte
+# boundaries, straddling fields (7 and 6 bits), and rows of 1, 127, 128
+# and 129 vars around the kernel's step of 128 points
 FIX_SHAPES = [(2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (5, 32), (9, 1),
-              (9, 2), (9, 8), (9, 16), (9, 32)]
+              (9, 2), (9, 8), (9, 16), (9, 32), (1, 7), (127, 3), (128, 2),
+              (129, 1)]
 
 
 @pytest.mark.parametrize("n_vars,bits", FIX_SHAPES)
