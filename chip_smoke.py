@@ -42,12 +42,17 @@ Phases (any failure exits non-zero; none is caught):
              paths, output rows off 16-byte boundaries), at the
              remote-sensing encoding, at populations past one grid wave
              and with rows too long to stage, ``population_min``
-             (popmin, two launches) at P = 17..2^20 with a late NaN and
-             ties, the shapes of the main path below among them; the
-             popmin fold alone on crafted partials; each timed at the
-             remote-sensing shape, graycode and fixedpoint also at
-             rastrigin n=9, 16 bits, and graycode at N = 1 (a
-             near-empty launch); then their main path: generate ->
+             (popmin, one launch: one block up to ``ONE_BLOCK_MAX``
+             values, else a grid whose last block folds) at P = 1..2^24
+             with a NaN at the last index, all NaN, ties and -0.0/0.0
+             ties (value bits and index), at the switch +-1 and on views
+             off 16-byte boundaries, the shapes of the main path below
+             among them; the popmin fold alone on crafted partials
+             (``ops.fold_partials``, counted in ``ops.fold_launches``);
+             graycode and fixedpoint timed at the remote-sensing shape
+             and at rastrigin n=9, 16 bits, graycode at N = 1 (a
+             near-empty launch), popmin and ``torch.min`` at P = 287,
+             5,439, 2^20 and 2^24; then their main path: generate ->
              decode -> objective -> ``population_min`` for a few DGO
              steps at remote_sensing and at rastrigin n=9, 16 bits,
              with the four launch counts set to 0 before and read
@@ -82,8 +87,9 @@ Phases (any failure exits non-zero; none is caught):
 The last lines are the card's name and power limit, a JSON line with
 every kernel's measurements (``popstep``, ``popstep_fold`` — merged into
 ``popstep``'s launch, timed through the check entry —, ``graycode``,
-``fixedpoint``, ``popmin`` — its partials launch —, ``popmin_fold``,
-``flash_attention`` — f32 — and ``flash_attention_bf16``), and
+``fixedpoint``, ``popmin``, ``popmin_fold`` — merged into ``popmin``'s
+launch, timed through the check entry —, ``flash_attention`` — f32 — and
+``flash_attention_bf16``), and
 ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it exits non-zero and prints no
@@ -780,8 +786,17 @@ FIX_SHAPES = ((2, 8), (9, 7), (8, 6), (680, 4), (3, 16), (9, 16), (5, 32),
               (128, 2), (129, 1))
 FIX_POPS = ((9, 16, 1_000_000), (9, 7, 1_000_000), (680, 4, 20_000),
             (13_000, 32, 9), (60_000, 7, 9))
-POPMIN_PS = (17, 125, 287, 1000, 4096, 5439, 10000, 2**20)
-POPMIN_FOLD_KS = (1, 6, 10, 1024)   # partials: P = 287, 5,439, 10,000, 2^20
+# popmin: P = 1..9 (less than one 16-byte load), the packed main path's
+# 287 and 5,439, 512 +1 and 8,192 +1 (the one block widens past them), the
+# one-block launch's limit +-1 (ops.ONE_BLOCK_MAX, added in check_popmin),
+# 2^20, and 2^24 (64 MB, past the L2); views v[k:] for k = 1..3 at
+# POPMIN_VIEW_PS
+POPMIN_PS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 17, 125, 287, 512, 513, 1000, 4096,
+             5439, 8192, 8193, 10000, 2**20, 2**24)
+POPMIN_VIEW_PS = (5439, 2**20)
+POPMIN_TIME_PS = (287, 5439, 2**20, 2**24)
+POPMIN_FOLD_KS = (1, 6, 10, 1024)   # crafted partials; 1,024: about the
+#                                     grid's blocks at 2^24
 PACKED_STEPS = 4        # DGO steps of the packed main path per problem
 
 
@@ -874,37 +889,77 @@ def check_fixedpoint(rng, dev) -> float:
     return err
 
 
+def _popmin_cases(rng, p: int, dev) -> dict:
+    """Random values, a NaN at the last index after a smaller value, all
+    NaN, all +inf, a 0.0 before a -0.0 and the reverse, and a three-way
+    tie."""
+    import torch
+
+    vals = torch.as_tensor(rng.standard_normal(p).astype(np.float32),
+                           device=dev)
+    last_nan = vals.clone()
+    last_nan[p // 2] = -10.0
+    last_nan[p - 1] = float("nan")
+    cases = {"random": vals, "last NaN": last_nan,
+             "all NaN": torch.full_like(vals, float("nan")),
+             "all +inf": torch.full_like(vals, float("inf"))}
+    if p > 2:
+        at = [p // 3, p // 2] if p > 5 else [1, 2]
+        for label, pair in (("0.0, -0.0", [0.0, -0.0]),
+                            ("-0.0, 0.0", [-0.0, 0.0])):
+            v = vals.abs() + 1.0
+            v[at] = torch.tensor(pair, device=dev)
+            cases[label] = v
+        ties = vals.clone()
+        ties[[p - 1, p // 2, p // 3]] = -10.0
+        cases["ties"] = ties
+    return cases
+
+
 def check_popmin(rng, dev) -> float:
-    """The popmin launches vs the plain version and the oracle, exactly,
-    at every P of ``POPMIN_PS``: random values, a NaN in a late tile (and
-    a smaller value before it), and ties."""
+    """``population_min`` vs the plain version and the oracle, exactly,
+    at every P of ``POPMIN_PS`` and at the one-block launch's
+    limit +-1 (the cases of :func:`_popmin_cases`), and on views v[k:],
+    k = 1..3, with the minimum first or last, at ``POPMIN_VIEW_PS``; a
+    value is held with its sign (:func:`_same`).  Each call is one launch
+    and no fold launch."""
     import torch
 
     from repro_torch.kernels.popmin import ops, ref
 
+    def held(v, label):
+        before = (ops.launches, ops.fold_launches)
+        kv, ki = ops.population_min(v)
+        check((ops.launches, ops.fold_launches)
+              == (before[0] + 1, before[1]),
+              f"popmin {label}: launches {before} -> "
+              f"{(ops.launches, ops.fold_launches)}, want one launch")
+        pv, pi = ops.population_min_plain(v)
+        rv, ri = ref.popmin_ref(v)
+        check(_same(kv, ki, pv, pi) and _same(kv, ki, rv, ri),
+              f"popmin {label}: kernel ({float(kv)}, {int(ki)}) plain "
+              f"({float(pv)}, {int(pi)}) oracle ({float(rv)}, {int(ri)})")
+        return abs(float(kv) - float(pv)) if np.isfinite(float(kv)) else 0.0
+
     err = 0.0
-    for p in POPMIN_PS:
-        vals = torch.as_tensor(rng.standard_normal(p).astype(np.float32),
-                               device=dev)
-        late_nan = vals.clone()
-        late_nan[[p - 2, p - 1] if p > 2 else [p - 1]] = float("nan")
-        late_nan[p // 3] = -10.0
-        ties = vals.clone()
-        ties[[p - 1, p // 2, p // 5]] = -10.0
-        for label, v in (("random", vals), ("late NaN", late_nan),
-                         ("ties", ties)):
-            for tile in (1024, 256):
-                kv, ki = ops.population_min(v, tile=tile)
-                pv, pi = ops.population_min_plain(v, tile)
-                rv, ri = ref.popmin_ref(v)
-                check(_same(kv, ki, pv, pi) and _same(kv, ki, rv, ri),
-                      f"popmin P={p} {label} tile {tile}: kernel "
-                      f"({float(kv)}, {int(ki)}) plain ({float(pv)}, "
-                      f"{int(pi)}) oracle ({float(rv)}, {int(ri)})")
-                if np.isfinite(float(kv)):
-                    err = max(err, abs(float(kv) - float(pv)))
-        print(f"[packed] popmin     P={p:<8} random, late NaN, ties; tiles "
-              f"1024 and 256: == plain == oracle")
+    limit = ops.ONE_BLOCK_MAX
+    for p in sorted({*POPMIN_PS, limit - 1, limit, limit + 1}):
+        cases = _popmin_cases(rng, p, dev)
+        for label, v in cases.items():
+            err = max(err, held(v, f"P={p} {label}"))
+        print(f"[packed] popmin     P={p:<8} {', '.join(cases)}: one launch,"
+              f" == plain == oracle")
+    for p in POPMIN_VIEW_PS:
+        for k in (1, 2, 3):
+            base = torch.as_tensor(rng.standard_normal(p + k).astype(
+                np.float32), device=dev)
+            for at in (k, p + k - 1):
+                v = base.clone()
+                v[at] = -10.0
+                check(v[k:].data_ptr() % 16 != 0, "view is aligned")
+                err = max(err, held(v[k:], f"P={p} v[{k}:] min at {at - k}"))
+        print(f"[packed] popmin     P={p:<8} views v[1:], v[2:], v[3:], the "
+              f"minimum first and last: == plain == oracle")
     return err
 
 
@@ -913,7 +968,7 @@ def check_popmin_fold(rng, dev) -> float:
     (``_plain.nan_first_rows`` on the same CUDA tensors) and vs the
     oracle, exactly, on crafted partials with unordered indices: random,
     NaNs, ties, a -0.0 beside a 0.0, all +inf; at the partial counts of
-    ``POPMIN_FOLD_KS``.  These launches are not counted."""
+    ``POPMIN_FOLD_KS``.  Each launch counts in ``ops.fold_launches``."""
     import torch
 
     from repro_torch.kernels._plain import nan_first_rows
@@ -953,8 +1008,9 @@ def time_packed(dev, rs_enc, rs_obj) -> dict:
     """Device times (``torch.profiler``, mean of 20) of the three kernels
     and their plain versions at the remote-sensing shape; graycode and
     fixedpoint also at rastrigin n=9, 16 bits, and graycode at N = 1;
-    popmin also at P = 2^20, with ``torch.min(vals, dim=0)`` as its library
-    call."""
+    popmin, its plain version and ``torch.min(vals, dim=0)`` (its library
+    call) at every P of ``POPMIN_TIME_PS`` (5,439: the remote-sensing
+    population's values), and the popmin fold alone on 1,024 partials."""
     import torch
 
     from repro_torch.core import objectives
@@ -969,8 +1025,6 @@ def time_packed(dev, rs_enc, rs_obj) -> dict:
     table = table_on("table", n, dev)
     words = gops.generate_population_packed(parent)
     vals = rs_obj.fn(fops.decode_packed(words, rs_enc))
-    big = torch.as_tensor(np.random.default_rng(10).standard_normal(
-        2**20).astype(np.float32), device=dev)
     t = dict(n_bits=n, pop=rs_enc.population, n_words=words.shape[1],
              n_vars=rs_enc.n_vars)
     t["graycode"] = device_ms(lambda: gops.generate_population_packed(
@@ -996,40 +1050,43 @@ def time_packed(dev, rs_enc, rs_obj) -> dict:
     t["graycode_empty"] = device_ms(
         lambda: gops.generate_population_packed(one), 20, dev,
         name="graycode_kernel")
-    for key, v in (("", vals), ("_big", big)):
-        t["popmin" + key] = device_ms(lambda: mops.population_min(v), 20,
-                                      dev, name="popmin_partials")
-        t["popmin_fold" + key] = device_ms(lambda: mops.population_min(v),
-                                           20, dev, name="popmin_fold")
-        t["popmin_plain" + key] = device_ms(
+    rng = np.random.default_rng(10)
+    for p in POPMIN_TIME_PS:
+        v = vals if p == t["pop"] else torch.as_tensor(
+            rng.standard_normal(p).astype(np.float32), device=dev)
+        t[f"popmin_{p}"] = device_ms(lambda: mops.population_min(v), 20,
+                                     dev, name="popmin_kernel")
+        t[f"popmin_plain_{p}"] = device_ms(
             lambda: mops.population_min_plain(v), 20, dev)
-        t["popmin_library" + key] = device_ms(lambda: torch.min(v, dim=0),
-                                              20, dev)
-    t["popmin_parts"] = -(-t["pop"] // 1024)
-    t["popmin_parts_big"] = -(-2**20 // 1024)
-    fold_args = (torch.as_tensor(np.random.default_rng(11).standard_normal(
-        t["popmin_parts"]).astype(np.float32), device=dev),
-                 torch.arange(t["popmin_parts"], dtype=torch.int32,
-                              device=dev))
+        t[f"popmin_library_{p}"] = device_ms(lambda: torch.min(v, dim=0),
+                                             20, dev)
+        print(f"[time] popmin P={p}: {t[f'popmin_{p}']:.4f} ms (plain "
+              f"{t[f'popmin_plain_{p}']:.4f}, torch.min "
+              f"{t[f'popmin_library_{p}']:.4f}); device time, mean of 20")
+    for key in ("", "_plain", "_library"):
+        t["popmin" + key] = t[f"popmin{key}_{t['pop']}"]
+    k = POPMIN_FOLD_KS[-1]
+    fold_args = (torch.as_tensor(rng.standard_normal(k).astype(np.float32),
+                                 device=dev),
+                 torch.arange(k, dtype=torch.int32, device=dev))
+    t["popmin_parts"] = k
+    t["popmin_fold"] = device_ms(lambda: mops.fold_partials(*fold_args), 20,
+                                 dev, name="popmin_fold")
     t["popmin_fold_plain"] = device_ms(lambda: nan_first_rows(
         fold_args[0][None], fold_args[1].long()[None]), 20, dev)
     print(f"[time] remote-sensing shape ({t['pop']} children x "
           f"{t['n_words']} words, {t['n_vars']} vars): graycode "
           f"{t['graycode']:.4f} ms (plain {t['graycode_plain']:.4f}); "
           f"fixedpoint {t['fixedpoint']:.4f} ms (plain "
-          f"{t['fixedpoint_plain']:.4f}); popmin P={t['pop']} partials "
-          f"{t['popmin']:.4f} + fold {t['popmin_fold']:.4f} ms (plain "
-          f"{t['popmin_plain']:.4f}, torch.min {t['popmin_library']:.4f}); "
-          f"device time, mean of 20")
+          f"{t['fixedpoint_plain']:.4f}); popmin fold alone on {k} "
+          f"partials {t['popmin_fold']:.4f} ms (plain "
+          f"{t['popmin_fold_plain']:.4f}); device time, mean of 20")
     print(f"[time] rastrigin n=9 16 bits ({r_enc.population} children x "
           f"{r_words.shape[1]} words): graycode "
           f"{t['graycode_rastrigin']:.4f} ms, fixedpoint "
           f"{t['fixedpoint_rastrigin']:.4f} ms; graycode at N=1 (a "
           f"near-empty launch) {t['graycode_empty']:.4f} ms; device time, "
           f"mean of 20")
-    print(f"[time] popmin P=2^20: partials {t['popmin_big']:.4f} + fold "
-          f"{t['popmin_fold_big']:.4f} ms (plain {t['popmin_plain_big']:.4f}"
-          f", torch.min {t['popmin_library_big']:.4f}); device time")
     return t
 
 
@@ -1160,10 +1217,10 @@ def phase_packed_main(dev) -> dict:
                   f"argmin) == plain == oracle")
         print(f"[packed] main {label}: {len(steps)} steps, best {val:.7g}")
     print(f"[packed] main launches: {counts}")
-    for name, n in counts.items():
-        check(n > 0, f"packed main path: {name} was never launched")
     steps_run = sum(len(r[3]) for r in runs)
-    check(all(n == steps_run for n in counts.values()),
+    # one launch of each kernel a step; popmin's fold runs inside its launch
+    want = dict.fromkeys(("graycode", "fixedpoint", "popmin"), steps_run)
+    check(steps_run > 0 and counts == {**want, "popmin_fold": 0},
           f"packed main path: {steps_run} steps but launches {counts}")
 
     rs_parent = parents[0]
@@ -1191,8 +1248,8 @@ def packed_bounds(t: dict) -> dict:
         # the words in, the float32 points out; a multiply and an add each
         "fixedpoint": bound(pop * w * 8 + pop * nv * 4, 2 * pop * nv),
         # the values in, (min, argmin) out; one comparison per value
+        **{f"popmin_{p}": bound(p * 4 + 8, p) for p in POPMIN_TIME_PS},
         "popmin": bound(pop * 4 + 8, pop),
-        "popmin_big": bound(2**20 * 4 + 8, 2**20),
         # the partials in, (min, argmin) out
         "popmin_fold": bound(t["popmin_parts"] * 8 + 8, t["popmin_parts"]),
     }
@@ -1627,8 +1684,9 @@ def main() -> None:
     # values and selection together, its bound_ms the work the step needs
     # (every unit recomputed: full_work_bound_ms); popstep_fold runs inside
     # the popstep launch on the main path (0 launches of its own), its ms
-    # is the check entry's; popmin's library call is torch.min(vals,
-    # dim=0), at P = 5,439
+    # is the check entry's, as is popmin_fold's (merged into popmin's
+    # launch); popmin's library call is torch.min(vals, dim=0), at
+    # P = 5,439, and its by_p entry holds every timed P
     print(json.dumps({"kernels": [{
         "name": "popstep", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:172",
@@ -1650,14 +1708,20 @@ def main() -> None:
                      "src/repro/kernels/fixedpoint/kernel.py:67",
                      errs["fixedpoint"], pt["fixedpoint"],
                      pt["fixedpoint_plain"]),
-        packed_entry("popmin", f"{kernels_dir}/popmin/csrc/popmin.cu",
-                     "src/repro/kernels/popmin/kernel.py:41",
-                     errs["popmin"], pt["popmin"], pt["popmin_plain"],
-                     pt["popmin_library"]),
-        packed_entry("popmin_fold", f"{kernels_dir}/popmin/csrc/popmin.cu",
-                     "src/repro/kernels/popmin/kernel.py:30",
-                     errs["popmin_fold"], pt["popmin_fold"],
-                     pt["popmin_fold_plain"]), {
+        {**packed_entry("popmin", f"{kernels_dir}/popmin/csrc/popmin.cu",
+                        "src/repro/kernels/popmin/kernel.py:41",
+                        errs["popmin"], pt["popmin"], pt["popmin_plain"],
+                        pt["popmin_library"]),
+         "by_p": {str(p): {
+             "ms": pt[f"popmin_{p}"], "plain_ms": pt[f"popmin_plain_{p}"],
+             "bound_ms": bounds[f"popmin_{p}"][0],
+             "library_ms": pt[f"popmin_library_{p}"]}
+             for p in POPMIN_TIME_PS}},
+        {**packed_entry("popmin_fold", f"{kernels_dir}/popmin/csrc/popmin.cu",
+                        "src/repro/kernels/popmin/kernel.py:30",
+                        errs["popmin_fold"], pt["popmin_fold"],
+                        pt["popmin_fold_plain"]),
+         "merged_into": "popmin"}, {
         "name": "flash_attention", "route": "cuda",
         "source": f"{kernels_dir}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",

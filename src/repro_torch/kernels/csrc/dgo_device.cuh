@@ -75,22 +75,34 @@ __device__ __forceinline__ bool nan_first_better(Cand a, Cand b) {
   return a.v < b.v || (a.v == b.v && a.row < b.row);
 }
 
+// The value's place in that order as an unsigned key: 0 for a NaN, then
+// the value's order, with -0.0 and 0.0 equal (0x80000000).
+__device__ __forceinline__ unsigned nan_first_key(float v) {
+  if (isnan(v)) return 0u;
+  const unsigned u = v == 0.0f ? 0u : __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
 // Lexicographic on (value, id).
 __device__ __forceinline__ bool lex_better(float av, int aid, float bv,
                                            int bid) {
   return av < bv || (av == bv && aid < bid);
 }
 
-// Butterfly reductions: every lane ends with the warp's best.  Both orders
-// are total (rows and ids are distinct), so the result is the same on
-// every lane and for any order of the inputs.
+// Warp reductions: every lane ends with the warp's best.  Both orders are
+// total (rows and ids are distinct), so the result is the same on every
+// lane and for any order of the inputs.  The NaN-first one takes the
+// smallest key, then the smallest row with it (two redux.sync), then the
+// value from the lane that holds both, so a -0.0 keeps its sign.
 __device__ __forceinline__ Cand warp_nan_first(Cand c) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const Cand q{__shfl_xor_sync(kFullMask, c.v, o),
-                 __shfl_xor_sync(kFullMask, c.row, o)};
-    if (nan_first_better(q, c)) c = q;
-  }
-  return c;
+  const unsigned key = nan_first_key(c.v);
+  const unsigned low = __reduce_min_sync(kFullMask, key);
+  const unsigned row = __reduce_min_sync(
+      kFullMask, key == low ? static_cast<unsigned>(c.row) : 0xffffffffu);
+  const unsigned owner = __ballot_sync(
+      kFullMask, key == low && static_cast<unsigned>(c.row) == row);
+  return Cand{__shfl_sync(kFullMask, c.v, __ffs(owner) - 1),
+              static_cast<int>(row)};
 }
 
 __device__ __forceinline__ void warp_lex(float& v, int& id) {
@@ -105,25 +117,28 @@ __device__ __forceinline__ void warp_lex(float& v, int& id) {
 }
 
 // The NaN-first best of every thread's candidate in a block of kThreads
-// threads; valid in thread 0.  Called by every thread of the block.
+// threads; valid in thread 0 (warp 0 folds the warps' winners).  Called by every thread of the block; a second call in the
+// same kernel must follow a barrier after the first.
 template <int kThreads>
 __device__ __forceinline__ Cand block_nan_first(Cand c) {
   constexpr int kWarpsInBlock = kThreads / 32;
-  __shared__ float sv[kWarpsInBlock];
-  __shared__ int sk[kWarpsInBlock];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  static_assert(kWarpsInBlock >= 1 && kWarpsInBlock <= 32, "1..32 warps");
   c = warp_nan_first(c);
-  if (lane == 0) {
-    sv[warp] = c.v;
-    sk[warp] = c.row;
+  if constexpr (kWarpsInBlock > 1) {
+    __shared__ float sv[kWarpsInBlock];
+    __shared__ int sk[kWarpsInBlock];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      sv[warp] = c.v;
+      sk[warp] = c.row;
+    }
+    __syncthreads();
+    if (warp == 0)
+      c = warp_nan_first(lane < kWarpsInBlock ? Cand{sv[lane], sk[lane]}
+                                              : Cand{CUDART_INF_F, INT_MAX});
   }
-  __syncthreads();
-  Cand b{sv[0], sk[0]};
-  if (threadIdx.x == 0)
-    for (int w = 1; w < kWarpsInBlock; ++w)
-      if (nan_first_better(Cand{sv[w], sk[w]}, b)) b = Cand{sv[w], sk[w]};
-  return b;
+  return c;
 }
 
 }  // namespace dgo

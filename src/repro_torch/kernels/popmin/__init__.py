@@ -1,2 +1,2 @@
-"""Population (min, argmin): per-tile partials and their fold, two CUDA
-launches (``csrc/popmin.cu``)."""
+"""Population (min, argmin): one CUDA launch a call, one block or a grid
+whose last block folds the blocks' winners (``csrc/popmin.cu``)."""

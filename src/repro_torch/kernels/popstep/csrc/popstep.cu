@@ -98,12 +98,7 @@ __device__ __forceinline__ unsigned parent_level(const signed char* bits_str,
 // (high word 0), else the value in an order-preserving map with -0 taken
 // as +0; the row in the low word breaks ties.
 __device__ __forceinline__ unsigned long long cand_key(float v, int row) {
-  unsigned hi = 0u;
-  if (!isnan(v)) {
-    const unsigned u = v == 0.0f ? 0u : __float_as_uint(v);
-    hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  }
-  return (static_cast<unsigned long long>(hi) << 32) |
+  return (static_cast<unsigned long long>(nan_first_key(v)) << 32) |
          static_cast<unsigned>(row);
 }
 

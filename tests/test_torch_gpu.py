@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.graycode import ops as graycode
 from repro_torch.kernels.popmin import ops as popmin
+from repro_torch.kernels.popmin.ref import popmin_ref
 from repro_torch.kernels.popstep import ops
 
 pytestmark = pytest.mark.gpu
@@ -300,27 +301,102 @@ def test_fixedpoint_kernel_matches_plain_version(cuda, n_vars, bits, lo, hi,
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("p", [5439, 2**20])
-def test_popmin_kernel_matches_plain_version(cuda, p):
+# P = 1..9 (fewer values than one 16-byte load), the packed main path's
+# 287 and 5,439, 512 +1 and 8,192 +1 (where the one block takes a wider
+# block), the switch from one block to a grid and +-1, 2^20 and 2^24
+# (64 MB, more than the L2 holds)
+POPMIN_PS = [*range(1, 10), 287, 512, 513, 5439, 8192, 8193,
+             popmin.ONE_BLOCK_MAX - 1, popmin.ONE_BLOCK_MAX,
+             popmin.ONE_BLOCK_MAX + 1, 2**20, 2**24]
+
+
+def _popmin_cases(p, cuda):
+    """Random values, a NaN at the last index after a smaller value, all
+    NaN, all +inf, a 0.0 before a -0.0 (and the reverse), and a three-way
+    tie."""
     vals = torch.as_tensor(np.random.default_rng(p).standard_normal(
         p).astype(np.float32), device=cuda)
-    late_nan = vals.clone()
-    late_nan[p - 3] = float("nan")
-    for v in (vals, late_nan):
-        before = (popmin.launches, popmin.fold_launches)
-        kv, ki = popmin.population_min(v)
-        assert (popmin.launches, popmin.fold_launches) == (before[0] + 1,
-                                                           before[1] + 1)
-        pv, pi = popmin.population_min_plain(v)
-        assert int(ki) == int(pi)
-        assert float(kv) == float(pv) or (np.isnan(float(kv))
-                                          and np.isnan(float(pv)))
+    cases = {"random": vals}
+    last_nan = vals.clone()
+    last_nan[p // 2] = -10.0
+    last_nan[p - 1] = float("nan")
+    cases["last NaN"] = last_nan
+    cases["all NaN"] = torch.full_like(vals, float("nan"))
+    cases["all +inf"] = torch.full_like(vals, float("inf"))
+    if p > 2:
+        for label, pair in (("0.0 then -0.0", [0.0, -0.0]),
+                            ("-0.0 then 0.0", [-0.0, 0.0])):
+            v = vals.abs() + 1.0
+            v[[p // 3, p // 2] if p > 5 else [1, 2]] = torch.tensor(
+                pair, device=cuda)
+            cases[label] = v
+        ties = vals.clone()
+        ties[[p - 1, p // 2, p // 3]] = -10.0
+        cases["ties"] = ties
+    return cases
+
+
+def _check_popmin(v, label):
+    """One launch and no fold launch; (value bits, index) equal to the
+    plain version's and the oracle's."""
+    before = (popmin.launches, popmin.fold_launches)
+    kv, ki = popmin.population_min(v)
+    assert (popmin.launches, popmin.fold_launches) == (before[0] + 1,
+                                                       before[1]), label
+    for wv, wi in (popmin.population_min_plain(v), popmin_ref(v)):
+        assert int(ki) == int(wi), label
+        assert torch.equal(kv.view(torch.int32),
+                           wv.to(torch.float32).view(torch.int32)), label
+
+
+@pytest.mark.parametrize("p", POPMIN_PS)
+def test_popmin_kernel_matches_plain_version(cuda, p):
+    for label, v in _popmin_cases(p, cuda).items():
+        _check_popmin(v, f"P={p} {label}")
+
+
+@pytest.mark.parametrize("p", [5439, popmin.ONE_BLOCK_MAX + 1, 2**20])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_popmin_kernel_takes_offset_views(cuda, p, k):
+    """v[k:] starts off a 16-byte boundary; the minimum in the values
+    before the first aligned one, then after the last whole vector."""
+    base = torch.as_tensor(np.random.default_rng(k).standard_normal(
+        p + k).astype(np.float32), device=cuda)
+    for at in (k, p + k - 1):
+        v = base.clone()
+        v[at] = -10.0
+        view = v[k:]
+        assert view.data_ptr() % 16 != 0
+        _check_popmin(view, f"P={p} v[{k}:] min at {at - k}")
+
+
+def test_popmin_kernel_on_two_streams(cuda):
+    """Grid launches alternated on two streams, each with its own ticket
+    and partial slots: every result is its own input's."""
+    p = 2**22
+    rng = np.random.default_rng(3)
+    ins = [torch.as_tensor(rng.standard_normal(p).astype(np.float32),
+                           device=cuda) for _ in range(2)]
+    want = [(int(popmin_ref(v)[1]), float(popmin_ref(v)[0])) for v in ins]
+    assert want[0][0] != want[1][0]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    got = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(50):
+        for j, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got.append((j, popmin.population_min(ins[j])))
+    torch.cuda.synchronize()
+    for j, (kv, ki) in got:
+        assert (int(ki), float(kv)) == want[j]
 
 
 @pytest.mark.parametrize("k", [6, 1024])
 def test_popmin_fold_kernel_matches_plain_version(cuda, k):
     """The fold alone on crafted partials (NaNs, ties, a -0.0) with
-    unordered indices; not counted."""
+    unordered indices; one count in ``fold_launches`` each."""
     rng = np.random.default_rng(k)
     vals = rng.integers(-5, 5, k).astype(np.float32)
     rows = rng.permutation(3 * k)[:k].astype(np.int32)
@@ -331,7 +407,7 @@ def test_popmin_fold_kernel_matches_plain_version(cuda, k):
         pr = torch.as_tensor(rows, device=cuda)
         before = popmin.fold_launches
         kv, ki = popmin.fold_partials(pv, pr)
-        assert popmin.fold_launches == before
+        assert popmin.fold_launches == before + 1
         wv, wi = nan_first_rows(pv[None], pr.long()[None])
         assert int(ki) == int(wi[0])
         assert torch.equal(kv.view(torch.int32), wv[0].view(torch.int32))

@@ -228,6 +228,62 @@ def test_popmin_nan_and_ties_match_the_oracle(case, tile):
     assert got[0].dtype == torch.float32
 
 
+# P = 1..9 (fewer values than one 16-byte load), and P at the CUDA
+# launch's switch from one block to a grid (ops.ONE_BLOCK_MAX) and +-1
+@pytest.mark.parametrize("p", [*range(1, 10), tmin.ONE_BLOCK_MAX - 1,
+                               tmin.ONE_BLOCK_MAX, tmin.ONE_BLOCK_MAX + 1])
+def test_popmin_small_and_switch_populations(p):
+    vals = np.random.default_rng(p).standard_normal(p).astype(np.float32)
+    got = tmin.population_min(torch.as_tensor(vals))
+    _same_min(got, min_oracle(jnp.asarray(vals)))
+    _same_min(got, jmin.population_min(jnp.asarray(vals)))
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+
+
+@pytest.mark.parametrize("at", ["head", "tail"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_popmin_offset_views(k, at):
+    """A view v[k:] starts off a 16-byte boundary, which .contiguous()
+    keeps; the minimum sits in the values before the first aligned one
+    or after the last whole 16 bytes."""
+    base = np.random.default_rng(k).standard_normal(5439 + k).astype(
+        np.float32)
+    base[k if at == "head" else -1] = -10.0
+    view = torch.as_tensor(base)[k:]
+    assert view.storage_offset() == k and view.is_contiguous()
+    got = tmin.population_min(view)
+    _same_min(got, min_oracle(jnp.asarray(base[k:])))
+    assert int(got[1]) == (0 if at == "head" else 5438)
+
+
+@pytest.mark.parametrize("p", [5, 1000, 5439, tmin.ONE_BLOCK_MAX + 1])
+@pytest.mark.parametrize("case", ["all_nan", "last_nan", "zero_first",
+                                  "minus_zero_first"])
+def test_popmin_nans_and_signed_zeros(case, p):
+    """All NaN -> (NaN, 0); a NaN at the last index wins over a smaller
+    value before it; a -0.0/0.0 tie goes to the smaller index with that
+    element's own bits.  The JAX kernel is held to the same where it
+    folds one tile (P <= 1024; its later tiles hide a NaN, ROADMAP
+    queue 3)."""
+    vals = np.abs(np.random.default_rng(p).standard_normal(p)).astype(
+        np.float32) + 1.0
+    if case == "all_nan":
+        vals[:] = np.nan
+    elif case == "last_nan":
+        vals[p // 2] = -7.0
+        vals[-1] = np.nan
+    else:
+        lo, hi = (p // 3, p // 2) if p > 2 else (1, 2)
+        vals[[lo, hi]] = [0.0, -0.0] if case == "zero_first" else [-0.0, 0.0]
+    got = tmin.population_min(torch.as_tensor(vals))
+    want = min_oracle(jnp.asarray(vals))
+    _same_min(got, want)
+    assert torch.equal(got[0].view(torch.int32),
+                       torch.as_tensor(vals[int(want[1])]).view(torch.int32))
+    if p <= 1024:
+        _same_min(got, jmin.population_min(jnp.asarray(vals)))
+
+
 def _crafted_partials(case, k, seed):
     """(K,) partial values and distinct, unordered int32 indices."""
     rng = np.random.default_rng(seed)
