@@ -795,8 +795,8 @@ POPMIN_PS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 17, 125, 287, 512, 513, 1000, 4096,
              5439, 8192, 8193, 10000, 2**20, 2**24)
 POPMIN_VIEW_PS = (5439, 2**20)
 POPMIN_TIME_PS = (287, 5439, 2**20, 2**24)
-POPMIN_FOLD_KS = (1, 6, 10, 1024)   # crafted partials; 1,024: about the
-#                                     grid's blocks at 2^24
+POPMIN_FOLD_KS = (1, 6, 10, 1024)   # crafted partials; 1,024: more than
+#                                     the grid launch's blocks
 PACKED_STEPS = 4        # DGO steps of the packed main path per problem
 
 

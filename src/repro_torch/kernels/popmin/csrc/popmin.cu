@@ -30,30 +30,36 @@
 //    a slot is non-zero once written, and the last block reads one again
 //    until it is.  `state` is one int32 buffer: the ticket, a pad, then a
 //    64-bit slot per block; the caller keeps one per stream, zeroed once.
+//    The ticket assumes nothing of the order blocks start in; block 0
+//    polling the slots (POPMIN_POLL) saved one round trip on an H100 but
+//    waits on blocks that may not have started.  (Clusters of 8 or 16
+//    blocks folding through distributed shared memory, with one ticket a
+//    cluster or none for one cluster, measured slower at every P on an
+//    H100: PERF.md.)
 // Every thread has kUnroll loads of kVec values (16 bytes at kVec = 4) in
 // flight before its first comparison, and compares by a cheap rule (a
 // strictly smaller value wins, the thread's rows in increasing order; a
 // NaN only raises a flag, and a thread that saw one walks its values again
-// by the full rule), so the compares keep up with the loads: the full rule
-// on every value held one block to ~30 GB/s on an H100.  Blocks and warps
-// fold by the full rule (dgo::block_nan_first).  The values before the first
-// kVec-aligned address (a view such as v[1:]) and after the last whole
-// vector are read one by one by block 0.  Indices fit in 32 bits
-// (P < 2^31); vector offsets are 64-bit.
+// by the full rule), so the compares keep up with the loads: with the full
+// rule on every value the compares, not the bytes, bounded a block.
+// Blocks and warps fold by the full rule (dgo::block_nan_first, two
+// redux.sync minima a warp).  The values before the first kVec-aligned
+// address (a view such as v[1:]) and after the last whole vector are read
+// one by one by block 0.  Indices fit in 32 bits (P < 2^31); vector
+// offsets are 64-bit.
 //
 // Variants, for probe_packed.py (-D switches; the defaults are the kernel):
 //  POPMIN_THREADS (512)        threads a block of the grid;
 //  POPMIN_ONE_THREADS (1024)   the most threads of the one-block launch;
 //  POPMIN_VEC (4)              values a load: 1, 2 or 4;
 //  POPMIN_UNROLL (4)           loads a thread has in flight;
-//  POPMIN_CLUSTER (0)          >= 2: the grid runs as clusters of this many
-//                              blocks whose first block folds the others'
-//                              winners from their shared memory
-//                              (cluster.map_shared_rank); only the clusters'
-//                              winners take the ticket, and a grid of one
-//                              cluster needs no state;
 //  POPMIN_FENCED               an acquire-release ticket (the slot store
 //                              acknowledged before the ticket is taken);
+//  POPMIN_POLL                 no ticket: block 0 folds, reading each slot
+//                              until it is written (it waits on blocks
+//                              that may not have started, which only a
+//                              cooperative launch rules out);
+//  POPMIN_COOP                 the grid by cudaLaunchCooperativeKernel;
 //  POPMIN_NO_FOLD              no ticket and no fold: each block's winner
 //                              alone, block 0's written (wrong output; the
 //                              cost of the fold by difference).
@@ -66,7 +72,6 @@
 #include <climits>
 #include <cstdint>
 
-#include <cooperative_groups.h>
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -85,9 +90,6 @@
 #ifndef POPMIN_UNROLL
 #define POPMIN_UNROLL 4
 #endif
-#ifndef POPMIN_CLUSTER
-#define POPMIN_CLUSTER 0
-#endif
 
 namespace popmin {
 
@@ -97,14 +99,11 @@ constexpr int kThreads = POPMIN_THREADS;
 constexpr int kOneBlockThreads = POPMIN_ONE_THREADS;
 constexpr int kVec = POPMIN_VEC;
 constexpr int kUnroll = POPMIN_UNROLL;
-constexpr int kCluster = POPMIN_CLUSTER;
 static_assert(kVec == 1 || kVec == 2 || kVec == 4, "POPMIN_VEC: 1, 2 or 4");
 static_assert(kThreads >= 2 * kVec && kThreads % 32 == 0, "whole warps");
 static_assert(kOneBlockThreads >= 32 && kOneBlockThreads <= 1024 &&
               (kOneBlockThreads & (kOneBlockThreads - 1)) == 0,
               "POPMIN_ONE_THREADS: a power of two, 32..1024");
-static_assert(kCluster == 0 || (kCluster >= 2 && kCluster <= 16),
-              "POPMIN_CLUSTER: 0 or 2..16");
 
 template <int V> struct VecOf;
 template <> struct VecOf<1> { using T = float; };
@@ -117,9 +116,9 @@ __device__ __forceinline__ void take(Cand& c, float v, int row) {
 }
 
 // Walks this thread's vectors of the body, rows in increasing order.
-// kExact: the NaN-first rule (take).  Else the cheap one, three
-// instructions a value: a strictly smaller value wins, so a tie keeps the
-// earlier row, and a NaN only sets any_nan.
+// kExact: the NaN-first rule (take).  Else the cheap one: a strictly
+// smaller value wins, so a tie keeps the earlier row, and a NaN only sets
+// any_nan.
 template <int kT, bool kExact>
 __device__ __forceinline__ void walk(const float* body, long long n_vec,
                                      int head, Cand& c, bool& any_nan) {
@@ -213,49 +212,28 @@ constexpr cuda::memory_order kTicketOrder = cuda::memory_order_acq_rel;
 #else
 constexpr cuda::memory_order kTicketOrder = cuda::memory_order_relaxed;
 #endif
+#ifdef POPMIN_NO_FOLD
+constexpr bool kFold = false;   // block 0's winner alone: wrong, for timing
+#else
+constexpr bool kFold = true;
+#endif
+#ifdef POPMIN_POLL
+constexpr bool kPoll = true;
+#else
+constexpr bool kPoll = false;
+#endif
 
 template <int kT>
 __global__ void __launch_bounds__(kT)
     popmin_kernel(const float* vals, int n, int* state, float* out_val,
                   int* out_idx) {
-  Cand b = block_nan_first<kT>(scan<kT>(vals, n));
-#ifdef POPMIN_NO_FOLD
-  if (true) {                 // each block's winner alone: wrong, for timing
-#else
-  if (gridDim.x == 1) {
-#endif
+  const Cand b = block_nan_first<kT>(scan<kT>(vals, n));
+  if (!kFold || gridDim.x == 1) {
     if (threadIdx.x == 0 && blockIdx.x == 0) {
       *out_val = b.v;
       *out_idx = b.row;
     }
     return;
-  }
-  int slot = blockIdx.x;
-  int n_slots = gridDim.x;
-  if constexpr (kCluster > 0) {
-    // every block's winner to its shared memory; the cluster's first block
-    // folds them, and the others wait until it has read theirs
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    __shared__ Cand win;
-    if (threadIdx.x == 0) win = b;
-    cluster.sync();
-    const bool leader = cluster.block_rank() == 0;
-    Cand cb{CUDART_INF_F, INT_MAX};
-    if (leader && threadIdx.x < kCluster)
-      cb = *cluster.map_shared_rank(&win, threadIdx.x);
-    cluster.sync();
-    if (!leader) return;
-    if (threadIdx.x < 32) b = warp_nan_first(cb);
-    slot = blockIdx.x / kCluster;
-    n_slots = gridDim.x / kCluster;
-    if (n_slots == 1) {
-      if (threadIdx.x == 0) {
-        *out_val = b.v;
-        *out_idx = b.row;
-      }
-      return;
-    }
   }
   // Thread 0 stores the block's winner to its 64-bit slot (the value's
   // bits high, the row plus one low, so a slot not yet written reads 0),
@@ -265,17 +243,22 @@ __global__ void __launch_bounds__(kT)
   unsigned long long* slots = reinterpret_cast<unsigned long long*>(state + 2);
   __shared__ int last;
   if (threadIdx.x == 0) {
-    Slot(slots[slot]).store(
+    Slot(slots[blockIdx.x]).store(
         (static_cast<unsigned long long>(__float_as_uint(b.v)) << 32) |
             (static_cast<unsigned>(b.row) + 1u),
         cuda::memory_order_relaxed);
-    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(state[0]);
-    last = ticket.fetch_add(1, kTicketOrder) == n_slots - 1;
+    if constexpr (kPoll) {
+      last = blockIdx.x == 0;
+    } else {
+      cuda::atomic_ref<int, cuda::thread_scope_device> ticket(state[0]);
+      last = ticket.fetch_add(1, kTicketOrder) ==
+             static_cast<int>(gridDim.x) - 1;
+    }
   }
   __syncthreads();
   if (!last) return;
   fold_parts<kT>(
-      n_slots,
+      gridDim.x,
       [&](int p) {
         Slot s(slots[p]);
         unsigned long long w;
@@ -313,42 +296,12 @@ void launch_one_block(const float* vals, int n, float* out_val, int* out_idx,
   popmin_kernel<kT><<<1, kT, 0, stream>>>(vals, n, nullptr, out_val, out_idx);
 }
 
-cudaError_t launch_grid(int grid, const float* vals, int n, int* state,
-                        float* out_val, int* out_idx, cudaStream_t stream) {
-  if constexpr (kCluster > 0) {
-    if (grid > 1) {
-      const auto fn = popmin_kernel<kThreads>;
-      if (kCluster > 8) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (err) return err;
-      }
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(grid);
-      cfg.blockDim = dim3(kThreads);
-      cfg.stream = stream;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = kCluster;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      return cudaLaunchKernelEx(&cfg, fn, vals, n, state, out_val, out_idx);
-    }
-  }
-  popmin_kernel<kThreads><<<grid, kThreads, 0, stream>>>(vals, n, state,
-                                                        out_val, out_idx);
-  return cudaSuccess;
-}
-
 }  // namespace popmin
 
 extern "C" {
 
-// Blocks of the grid launch that the card holds at once (a multiple of
-// POPMIN_CLUSTER when it is set): the most the grid launch uses, and the
-// partial slots its state needs.
+// Blocks of the grid launch that the card holds at once: the most the grid
+// launch uses, and the slots its state needs.
 int popmin_grid(int* blocks) {
   using namespace popmin;
   int dev = 0, sms = 0, per_sm = 0;
@@ -358,31 +311,35 @@ int popmin_grid(int* blocks) {
   if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, popmin_kernel<kThreads>, kThreads, 0);
   *blocks = sms * per_sm;
-  if constexpr (kCluster > 0) *blocks -= *blocks % kCluster;
   return static_cast<int>(err);
 }
 
 // (min, argmin) of vals[0, n): one block when max_blocks <= 1, else a grid
 // of at most max_blocks blocks (fewer when P is less than a round of loads
-// for each; with POPMIN_CLUSTER, rounded up to whole clusters), with
-// `state` holding 2 + 2 * max_blocks int32, all zero, as the launch before
-// on this stream leaves it.
+// for each), with `state` holding 2 + 2 * max_blocks int32, all zero, as
+// the launch before on this stream leaves it.
 int popmin_launch(const float* vals, int n, int max_blocks, int* state,
                   float* out_val, int* out_idx, void* stream) {
   using namespace popmin;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
   if (max_blocks <= 1) {
     launch_one_block<kOneBlockThreads>(vals, n, out_val, out_idx, s);
   } else {
     const long long round = static_cast<long long>(kThreads) * kUnroll * kVec;
-    int grid = static_cast<int>(std::min(static_cast<long long>(max_blocks),
-                                         (n + round - 1) / round));
-    if constexpr (kCluster > 0)
-      if (grid > 1) grid = (grid + kCluster - 1) / kCluster * kCluster;
-    err = launch_grid(grid, vals, n, state, out_val, out_idx, s);
+    const int grid = static_cast<int>(std::min(
+        static_cast<long long>(max_blocks), (n + round - 1) / round));
+#ifdef POPMIN_COOP
+    void* args[] = {&vals, &n, &state, &out_val, &out_idx};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(popmin_kernel<kThreads>), grid,
+        kThreads, args, 0, s);
+    if (err) return static_cast<int>(err);
+#else
+    popmin_kernel<kThreads><<<grid, kThreads, 0, s>>>(vals, n, state,
+                                                      out_val, out_idx);
+#endif
   }
-  return static_cast<int>(err ? err : cudaGetLastError());
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The partials' fold alone: one block; writes the NaN-first (value, index).

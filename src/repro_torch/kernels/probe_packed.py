@@ -38,16 +38,13 @@ Variants:
   (``POPMIN_ONE_THREADS``: its most threads); ``grid blocks of 128`` /
   ``256`` / ``1024`` (``POPMIN_THREADS``); ``scalar loads`` and ``float2
   loads`` (``POPMIN_VEC`` 1, 2); ``unroll 1`` / ``2`` / ``8``
-  (``POPMIN_UNROLL``); ``cluster 8`` / ``cluster 16`` (``POPMIN_CLUSTER``:
-  the grid's blocks fold by clusters through distributed shared memory);
-  ``fenced ticket`` (``POPMIN_FENCED``); ``no fold`` (``POPMIN_NO_FOLD``:
+  (``POPMIN_UNROLL``); ``fenced ticket`` (``POPMIN_FENCED``); ``no fold`` (``POPMIN_NO_FOLD``:
   no ticket, wrong output); ``empty``; and ``torch.min(vals, dim=0)``
   (the library call, not checked).  Each is
   launched as the wrapper launches it (one block for P <=
   ``ops.ONE_BLOCK_MAX``, else the grid) at P = 287, 5,439 (the packed
   main path's), 2^20 and 2^24.  The switch: the kernel as one block and
-  as a grid, and the cluster variants as one cluster (no state), at
-  P = 2,048 .. 131,072 (``MIN_SWEEP``).
+  as a grid at P = 2,048 .. 131,072 (``MIN_SWEEP``).
 
 Shapes (children x words, vars x bits): the packed main path's two,
 remote-sensing (5,439 x 85, 680 x 4) and rastrigin n=9 at 16 bits (287 x 5,
@@ -111,9 +108,9 @@ MIN_VARIANTS = {"kernel": (), "one block of 256": ("-DPOPMIN_ONE_THREADS=256",),
                 "unroll 1": ("-DPOPMIN_UNROLL=1",),
                 "unroll 2": ("-DPOPMIN_UNROLL=2",),
                 "unroll 8": ("-DPOPMIN_UNROLL=8",),
-                "cluster 8": ("-DPOPMIN_CLUSTER=8",),
-                "cluster 16": ("-DPOPMIN_CLUSTER=16",),
                 "fenced ticket": ("-DPOPMIN_FENCED",),
+                "block 0 polls": ("-DPOPMIN_POLL",),
+                "polls, cooperative": ("-DPOPMIN_POLL", "-DPOPMIN_COOP"),
                 "no fold": ("-DPOPMIN_NO_FOLD",)}
 # fixedpoint-only shapes: (children, vars, bits)
 FIX_EXTRA = ((5439, 170, 16), (287, 36, 4), (100_000, 9, 16),
@@ -345,14 +342,11 @@ def probe_popmin(libs, loaded, empty_lib, dev, stream) -> None:
     for p in MIN_SWEEP:
         vals, want = values(p)
         calls = {}
-        for key, blocks in (("kernel", 1), ("kernel", None),
-                            ("cluster 8", 8), ("cluster 16", 16)):
+        for shape, blocks in (("one block", 1),
+                              ("grid", grids[("popmin", "kernel")])):
             out = torch.empty(2, dtype=torch.float32, device=dev)
-            shape = {1: "one block", None: "grid"}.get(blocks, "one cluster")
-            calls[f"{key}, {shape}"] = (call(
-                ("popmin", key), vals, out,
-                grids[("popmin", key)] if blocks is None else blocks), out,
-                want)
+            calls[f"kernel, {shape}"] = (
+                call(("popmin", "kernel"), vals, out, blocks), out, want)
         run(p, calls)
 
 
