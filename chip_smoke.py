@@ -161,33 +161,41 @@ def _device_activity(prof, name: str | None = None) -> tuple[float, int]:
     return sum(times), len(times)
 
 
-PROFILE_TRIES = 3     # profiler sessions before a short count is accepted
+PROFILE_TRIES = 6     # profiler sessions before a short count is accepted
+PROFILE_PAUSE_S = 1.0  # between them (see profiled)
 
 
-def profiled(fn, name: str | None = None, want: int | None = None):
-    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity),
-    ending in a synchronize; returns (the profiler, wall seconds).  The
-    profiler has been seen to drop records (one of three launches; all
-    twenty of a session), so a session that saw no device time, or, given
-    ``name`` and ``want``, other than ``want`` launches of kernels named
-    so, is run again, up to ``PROFILE_TRIES`` sessions, each retry
-    printed."""
+def profiled(fn, name: str | None = None, want: int | None = None, *,
+             calls: int = 1, cpu: bool = True):
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity, and CPU
+    activity unless ``cpu`` is false), ending in a synchronize; returns
+    (the profiler, wall seconds).  The profiler loses records: on an H100
+    every session's for up to half a second about every ten seconds, and
+    some of the session's just before (``probe_profiler.py``).  So a
+    session is run again, after ``PROFILE_PAUSE_S``, up to
+    ``PROFILE_TRIES`` sessions, each retry printed, when it saw no device
+    activity (of kernels named ``name``, when given), other than ``want``
+    of them, or a count that ``calls`` calls of ``fn``, each making the
+    same launches, cannot give."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     for attempt in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         us, n = _device_activity(prof, name)
-        if us > 0 and (want is None or n == want):
+        if us > 0 and n % calls == 0 and want in (None, n):
             break
         print(f"[time] profiler session {attempt} recorded {n} "
-              f"{name or 'device'} activities (want {want or 'some'})"
+              f"{name or 'device'} activities (want {want or 'some'}"
+              f"{f' in {calls} equal calls' if calls > 1 else ''})"
               + ("; profiling again" if attempt < PROFILE_TRIES else ""))
+        if attempt < PROFILE_TRIES:
+            time.sleep(PROFILE_PAUSE_S)
     return prof, wall
 
 
@@ -205,7 +213,7 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     fn()
     torch.cuda.synchronize()
     prof, _ = profiled(lambda: [fn() for _ in range(reps)], name,
-                       reps if name else None)
+                       reps if name else None, calls=reps)
     us, n = _device_activity(prof, name)
     check(us > 0, f"the profiler recorded no device time"
                   f"{f' for {name!r}' if name else ''}")
@@ -721,11 +729,11 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
           f"(first-use table builds included; per step launched), "
           f"{wall_warm / max(n_rs[0], 1) * 1e3:.3f} ms repeated")
     if dev.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res_prof, wall_prof = _solve_timed(
-                rs_prob, Distributed(inner="popstep"), x0_rs, 64, dev)
+        solved = []
+        prof, _ = profiled(lambda: solved.append(_solve_timed(
+            rs_prob, Distributed(inner="popstep"), x0_rs, 64, dev)),
+            "popstep_kernel", cpu=False)
+        res_prof, wall_prof = solved[-1]
         busy_us, n_acts = _device_activity(prof)
         busy = busy_us / 1e6
         # on the card itself: the step kernel ran, the fold kernel did not
