@@ -34,6 +34,22 @@ Phases (any failure exits non-zero; none is caught):
              remote-sensing solve again with ``inner="fused"`` (plain
              PyTorch on the card), whose history must match step for
              step unless a step's two winners are a near-tie;
+4b. schedule — the resolution schedule: ``solve(remote_sensing,
+             Fused(), max_iters=64)`` at full width, 4 -> 16 bits in 7
+             resolutions, and ``Distributed(max_bits=8)`` on the device
+             driver, each with both launch counts set to 0 before and
+             read after: one popstep launch per bound-step call, no fold
+             launch, and between ``iterations`` and ``iterations + 16 x
+             resolutions`` launches; the fused solve again through the
+             plain tensor step on the card (the same run unless it parts
+             at a near-tie) and under the profiler (idle share, device
+             activities per step); the folded history equal to
+             ``Distributed(driver="host", max_bits=8)``'s step for step;
+             ``Clustered(n_clusters=8)`` on rastrigin n=9, whose winner
+             and evaluations must be the best and the sum of 8 ``Fused``
+             runs from its starts; ``Sequential`` from the first start
+             within 1e-3 (the reference's strategy-parity spread) of
+             ``Fused``;
 5. packed  — the packed-word kernels vs their plain versions, bitwise:
              ``generate_population_packed`` (graycode) at N = 9..2,720
              (odd and even W), ``graycode_children`` on a subset of the
@@ -85,7 +101,9 @@ Phases (any failure exits non-zero; none is caught):
              near-ties.
 
 The last lines are the card's name and power limit, a JSON line with
-every kernel's measurements (``popstep``, ``popstep_fold`` — merged into
+every kernel's measurements (``popstep`` — its launches summed over
+phases 4 and 4b, each solve's count under ``by_path`` —, ``popstep_fold``
+— merged into
 ``popstep``'s launch, timed through the check entry —, ``graycode``,
 ``fixedpoint``, ``popmin``, ``popmin_fold`` — merged into ``popmin``'s
 launch, timed through the check entry —, ``flash_attention`` — f32 — and
@@ -683,7 +701,9 @@ def _counted_solve(problem, strategy, x0, max_iters, dev):
     return res, wall, counts
 
 
-def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
+def phase_main_path(dev, rs_ms: float, rast_ms: float) -> dict:
+    """The two main-path solves; returns each one's (launches, fold
+    launches) by path."""
     from repro_torch.core.solver import Distributed, Problem
 
     rs_prob = Problem.get("remote_sensing")
@@ -765,7 +785,219 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> tuple[int, int]:
                            rs_prob, x0_rs, dev)
     print(f"[main] popstep vs fused histories: "
           f"{note or 'match step for step'}")
-    return n_rs[0] + n_ra[0], n_rs[1] + n_ra[1]
+    return {"main: remote_sensing distributed device": n_rs[:2],
+            "main: rastrigin n=9 distributed host 8->16": n_ra[:2]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the resolution schedule
+# ---------------------------------------------------------------------------
+
+SCHED_ITERS = 64          # max_iters of the remote-sensing schedule solves
+SCHED_PROBLEM = ("remote_sensing", {})      # full width: 680 vars, 4->16 bits
+CLUSTER_PROBLEM = ("rastrigin", {"n": 9})
+N_CLUSTERS = 8
+SEQ_TOTAL_ITERS = 1024    # Sequential's total-iteration guard
+STRATEGY_SPREAD = 1e-3    # the reference's strategy-parity bar
+
+
+def _near(a, b) -> bool:
+    return bool(np.isclose(a, b, rtol=RTOL, atol=ATOL))
+
+
+def _plateaus(h) -> list:
+    """The values a run moves through: steps within the bar of the last
+    kept value dropped (a stall's repeat, or an improvement below the
+    bar that one step engine may see and the other not)."""
+    out = [h[0]]
+    for v in h[1:]:
+        if not _near(v, out[-1]):
+            out.append(v)
+    return out
+
+
+def schedule_runs_match(h_a, h_b) -> str:
+    """'' if two runs' step sequences agree within the bar step for step;
+    else they may part only at a near-tie (one takes a step the other
+    does not, improving by less than the bar, and the two go on a step
+    apart): the values they move through must agree one for one and a
+    step within the bar must exist.  Fails otherwise."""
+    h_a, h_b = np.asarray(h_a, np.float64), np.asarray(h_b, np.float64)
+    n = min(len(h_a), len(h_b))
+    if len(h_a) == len(h_b) and np.isclose(h_a, h_b, rtol=RTOL,
+                                           atol=ATOL).all():
+        return ""
+    p_a, p_b = _plateaus(h_a), _plateaus(h_b)
+    check(len(p_a) == len(p_b) and all(map(_near, p_a, p_b)),
+          f"the runs part beyond a near-tie: {p_a} vs {p_b}")
+    tiny = [bool(np.any((np.diff(h) < 0) & np.isclose(
+        h[1:], h[:-1], rtol=RTOL, atol=ATOL))) for h in (h_a, h_b)]
+    check(any(tiny), "the runs part without a step within the bar")
+    close = np.isclose(h_a[:n], h_b[:n], rtol=RTOL, atol=ATOL)
+    t = n if close.all() else int(np.argmin(close))
+    return (f"near-tie: {len(h_a)} vs {len(h_b)} entries, parting at "
+            f"entry {t}, through the same {len(p_a)} values")
+
+
+def _report(label, res, wall, counts, n_res, steps=None) -> int:
+    """Print a counted schedule solve and hold its counts: one launch a
+    bound-step call, no fold launch, between ``steps`` (the steps taken:
+    ``iterations`` unless given) and ``steps + STALL_CHECK_EVERY x
+    resolutions`` launches (steps after a stall are predicated no-ops
+    until the host reads the flag)."""
+    from repro_torch.core.distributed import STALL_CHECK_EVERY
+
+    n, n_fold, n_steps = counts
+    it = res.iterations if steps is None else steps
+    print(f"[schedule] {label}: {it} iterations, best_f "
+          f"{float(res.best_f):.7g}, wall {wall:.4f} s, {n_steps} bound-"
+          f"step calls, launches: popstep {n}, fold alone {n_fold}; wall "
+          f"per step {wall / max(n, 1) * 1e3:.4f} ms per launch, "
+          f"{wall / max(it, 1) * 1e3:.4f} ms per iteration")
+    check(n > 0, f"{label}: the popstep kernel was never launched")
+    check(n == n_steps, f"{label}: {n} launches for {n_steps} step calls")
+    check(n_fold == 0, f"{label}: the fold was launched alone {n_fold} "
+                       f"times")
+    check(it <= n <= it + STALL_CHECK_EVERY * n_res,
+          f"{label}: {n} launches for {it} iterations over {n_res} "
+          f"resolutions")
+    check(res.extras["finite"] and np.isfinite(float(res.best_f)),
+          f"{label}: non-finite result")
+    return n
+
+
+def phase_schedule(dev) -> dict:
+    """The resolution schedule on the card: Fused and the folded
+    Distributed engine on the remote-sensing MLP at full width, Clustered
+    and Sequential on rastrigin n=9.  Returns each path's (launches, fold
+    launches)."""
+    from repro_torch.core import dgo, prng
+    from repro_torch.core.solver import (Clustered, Distributed, Fused,
+                                         Problem, Sequential)
+
+    name, kw = SCHED_PROBLEM
+    rs = Problem.get(name, **kw)
+    enc = rs.encoding
+    x0 = np.random.default_rng(2).uniform(enc.lo, enc.hi,
+                                          enc.n_vars).astype(np.float32)
+    counts = {}
+
+    # Fused: the default schedule, 4 -> 16 bits in 7 resolutions
+    fused = Fused()
+    cfg = fused._config(rs, SCHED_ITERS, None, 2)
+    n_res = len(cfg.resolutions())
+    res_f, wall_f, n_f = _counted_solve(rs, fused, x0, SCHED_ITERS, dev)
+    label = f"{name} fused {enc.bits}->{cfg.max_bits} bits"
+    _report(label, res_f, wall_f, n_f, n_res)
+    counts[f"schedule: {label}"] = n_f[:2]
+    check(res_f.trace.shape == (res_f.iterations,)
+          and tuple(res_f.best_x.shape) == (enc.n_vars,)
+          and bool(res_f.best_x.isfinite().all()),
+          f"{label}: trace {res_f.trace.shape}, best_x "
+          f"{tuple(res_f.best_x.shape)}")
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    plain = dgo._fused_result(rs.objective, cfg, x0=x0,
+                              device=None if on_card else dev, inner="fused")
+    if on_card:
+        import torch
+        torch.cuda.synchronize(dev)
+    wall_p = time.perf_counter() - t0
+    note = schedule_runs_match(res_f.trace, plain.trace)
+    print(f"[schedule] {label} through the plain tensor step: "
+          f"{plain.iterations} iterations, best_f {float(plain.value):.7g}, "
+          f"wall {wall_p:.3f} s; traces "
+          f"{note or 'match step for step'}")
+    res_w, wall_w = _solve_timed(rs, fused, x0, SCHED_ITERS, dev)
+    check(np.array_equal(res_w.trace, res_f.trace),
+          f"{label}: a repeated solve gave another trace")
+    print(f"[schedule] {label} repeated: wall {wall_w:.4f} s, "
+          f"{wall_w / max(res_w.iterations, 1) * 1e3:.4f} ms per iteration")
+    if on_card:
+        solved = []
+        prof, _ = profiled(lambda: solved.append(_solve_timed(
+            rs, fused, x0, SCHED_ITERS, dev)), "popstep_kernel", cpu=False)
+        res_prof, wall_prof = solved[-1]
+        busy_us, n_acts = _device_activity(prof)
+        step_us, n_step_dev = _device_activity(prof, "popstep_kernel")
+        _, n_fold_dev = _device_activity(prof, "popstep_fold")
+        print(f"[schedule] {label} repeated under the profiler: popstep "
+              f"{step_us / 1e3 / max(n_step_dev, 1):.4f} ms a launch on "
+              f"average ({step_us / max(busy_us, 1e-9):.3f} of the device "
+              f"time)")
+        print(f"[schedule] {label} repeated under the profiler: wall "
+              f"{wall_prof:.4f} s, device busy {busy_us / 1e6:.4f} s, idle "
+              f"share {1 - busy_us / 1e6 / wall_prof:.3f}, {n_acts} device "
+              f"activities ({n_acts / max(res_prof.iterations, 1):.1f} per "
+              f"iteration, {n_acts / max(n_step_dev, 1):.1f} per launch); "
+              f"recorded launches: popstep_kernel {n_step_dev}, "
+              f"popstep_fold_kernel {n_fold_dev}")
+        check(n_step_dev > 0, "the profiler recorded no popstep_kernel "
+                              "launch in the repeated fused solve")
+        check(n_fold_dev == 0, f"the repeated fused solve launched "
+                               f"popstep_fold_kernel {n_fold_dev} times")
+
+    # the folded Distributed engine, 4 -> 8 bits, against host chaining
+    folded = Distributed(max_bits=enc.bits + 4)
+    res_d, wall_d, n_d = _counted_solve(rs, folded, x0, SCHED_ITERS, dev)
+    label = f"{name} distributed folded {enc.bits}->{enc.bits + 4} bits"
+    _report(label, res_d, wall_d, n_d, len(res_d.extras["schedule"]))
+    counts[f"schedule: {label}"] = n_d[:2]
+    res_h, wall_h = _solve_timed(
+        rs, Distributed(max_bits=enc.bits + 4, driver="host"), x0,
+        SCHED_ITERS, dev)
+    check(res_d.extras["history"] == res_h.extras["history"],
+          f"{label}: the folded history differs from host chaining")
+    check(res_d.extras["bits_resolution"] == res_h.extras["bits_resolution"]
+          and float(res_d.best_f) == float(res_h.best_f),
+          f"{label}: best ({float(res_d.best_f)}, "
+          f"{res_d.extras['bits_resolution']}) vs host chaining "
+          f"({float(res_h.best_f)}, {res_h.extras['bits_resolution']})")
+    print(f"[schedule] {label}: history == host chaining step for step "
+          f"({len(res_h.extras['history']) - 1} steps, host-chained wall "
+          f"{wall_h:.4f} s)")
+
+    # Clustered: 8 starts, against 8 Fused runs from the same starts
+    name, kw = CLUSTER_PROBLEM
+    rast = Problem.get(name, **kw)
+    starts = rast.random_x0(prng.PRNGKey(0), batch=N_CLUSTERS)
+    clustered = Clustered(n_clusters=N_CLUSTERS)
+    res_c, wall_c, n_c = _counted_solve(rast, clustered, starts, None, dev)
+    singles = [_solve_timed(rast, Fused(), starts[c], None, dev)[0]
+               for c in range(N_CLUSTERS)]
+    cfg_c = clustered._config(rast, None, None, 2)
+    label = f"{name} {kw} clustered x{N_CLUSTERS}"
+    # the clusters run one after another: their steps add up
+    _report(label, res_c, wall_c, n_c, N_CLUSTERS * len(cfg_c.resolutions()),
+            steps=sum(r.iterations for r in singles))
+    counts[f"schedule: {label}"] = n_c[:2]
+    best = min(float(r.best_f) for r in singles)
+    evals = sum(r.extras["evaluations"] for r in singles)
+    check(float(res_c.best_f) == best,
+          f"{label}: winner {float(res_c.best_f)!r} vs best of the fused "
+          f"runs {best!r}")
+    check(res_c.extras["evaluations"] == evals,
+          f"{label}: {res_c.extras['evaluations']} evaluations vs "
+          f"{evals} in the fused runs")
+    print(f"[schedule] {label}: winner {res_c.extras['winner']} "
+          f"{float(res_c.best_f):.7g} == best of {N_CLUSTERS} fused runs; "
+          f"{evals} evaluations == their sum")
+
+    # Sequential (the numpy loop, one point at a time) against Fused
+    seq = Sequential(max_total_iters=SEQ_TOTAL_ITERS)
+    res_s, wall_s = _solve_timed(rast, seq, starts[0], None, dev)
+    fin = float(singles[0].best_f)
+    print(f"[schedule] {label.split(' clustered')[0]} sequential: "
+          f"{res_s.iterations} iterations, {res_s.extras['evaluations']} "
+          f"evaluations, best_f {float(res_s.best_f):.7g}, wall "
+          f"{wall_s:.3f} s ({wall_s / max(res_s.iterations, 1) * 1e3:.3f} "
+          f"ms per iteration); fused from the same start {fin:.7g}")
+    check(res_s.iterations < SEQ_TOTAL_ITERS,
+          f"sequential ran into its guard of {SEQ_TOTAL_ITERS} iterations")
+    check(abs(float(res_s.best_f) - fin) < STRATEGY_SPREAD,
+          f"sequential {float(res_s.best_f)!r} vs fused {fin!r}: beyond "
+          f"the strategy-parity spread {STRATEGY_SPREAD}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1669,7 +1901,10 @@ def main() -> None:
     bound_ms, bound_by = popstep_bound_ms(rs)
     fold = phase_fold(dev, rs["enc"].population)
     fold_bound, fold_by = fold_bound_ms(fold)
-    n_launch, n_fold = phase_main_path(dev, rs["ms"], rs["rastrigin_ms"])
+    by_path = phase_main_path(dev, rs["ms"], rs["rastrigin_ms"])
+    by_path.update(phase_schedule(dev))
+    n_launch = sum(n for n, _ in by_path.values())
+    n_fold = sum(f for _, f in by_path.values())
     errs, pt, packed = phase_packed(dev)
     ft = phase_flash(dev)
     served = phase_serve(dev)
@@ -1701,7 +1936,8 @@ def main() -> None:
         "launches": n_launch, "max_abs_err": rs["max_abs_err"],
         "ms": rs["ms"], "plain_ms": rs["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "full_work_bound_ms": rs["full_work_bound_ms"]}, {
+        "full_work_bound_ms": rs["full_work_bound_ms"],
+        "by_path": {path: n for path, (n, _) in by_path.items()}}, {
         "name": "popstep_fold", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:110",
         "launches": n_fold, "max_abs_err": fold["max_abs_err"],

@@ -4,16 +4,19 @@
 far (``tests/test_torch_imports.py`` checks that it stays a subset).
 """
 from repro_torch.core import cache, objectives
-from repro_torch.core.dgo import DGOConfig
+from repro_torch.core.dgo import DGOConfig, DGOResult, dgo_iteration
 from repro_torch.core.distributed import make_distributed_engine, make_distributed_step
 from repro_torch.core.encoding import (
     Encoding, binary_to_gray, decode, encode, gray_to_binary)
 from repro_torch.core.population import (
     generate_children, generate_population, population_size)
 from repro_torch.core.solver import (
+    Clustered,
     Distributed,
+    Fused,
     NonFiniteResult,
     Problem,
+    Sequential,
     SolveResult,
     Strategy,
     result_is_finite,
@@ -23,9 +26,12 @@ from repro_torch.core.solver import (
 
 __all__ = [
     # the solver facade
+    "Clustered",
     "Distributed",
+    "Fused",
     "NonFiniteResult",
     "Problem",
+    "Sequential",
     "SolveResult",
     "Strategy",
     "result_is_finite",
@@ -33,12 +39,14 @@ __all__ = [
     "strategy_names",
     # shared specs / subsystems
     "DGOConfig",
+    "DGOResult",
     "Encoding",
     "cache",
     "objectives",
     # encoding / population primitives
     "binary_to_gray",
     "decode",
+    "dgo_iteration",
     "encode",
     "generate_children",
     "generate_population",

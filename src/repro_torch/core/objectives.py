@@ -20,6 +20,7 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.cache import get_cache
 from repro_torch.core.encoding import Encoding
 
@@ -212,15 +213,15 @@ RS_NVARS = RS_IN * RS_HIDDEN + RS_HIDDEN + RS_HIDDEN * RS_CLASSES + RS_CLASSES
 def make_remote_sensing_data(seed: int = 42, n_per_class: int = 32
                              ) -> tuple[np.ndarray, np.ndarray]:
     """8 Gaussian clusters in 7-D band space: centers uniform in [-2, 2],
-    noise 0.3 * N(0, 1), ``n_per_class`` samples each.  Shapes and
-    distribution follow ``repro.core.objectives.make_remote_sensing_data``;
-    the draws come from numpy's generator and differ from JAX's
-    ``PRNGKey(42)`` (use :func:`load_reference_state` to evaluate the
-    reference's own samples)."""
-    rng = np.random.default_rng(seed)
-    centers = rng.uniform(-2.0, 2.0, (RS_CLASSES, RS_IN))
-    noise = 0.3 * rng.standard_normal((RS_CLASSES, n_per_class, RS_IN))
-    x = (centers[:, None, :] + noise).reshape(-1, RS_IN).astype(np.float32)
+    noise 0.3 * N(0, 1), ``n_per_class`` samples each.  The draws are
+    ``repro.core.objectives.make_remote_sensing_data(PRNGKey(seed))``'s,
+    through the threefry twin (:mod:`repro_torch.core.prng`): the centers
+    bitwise, the noise within a few ulp of jax's ``normal``."""
+    kc, kx = prng.split(prng.PRNGKey(seed))
+    centers = prng.uniform(kc, (RS_CLASSES, RS_IN), -2.0, 2.0)
+    noise = np.float32(0.3) * prng.normal(kx, (RS_CLASSES, n_per_class,
+                                               RS_IN))
+    x = (centers[:, None, :] + noise).reshape(-1, RS_IN)
     y = np.repeat(np.arange(RS_CLASSES), n_per_class)
     return x, y
 

@@ -4,9 +4,9 @@ Paper step 2, per child: binary -> Gray code (whole string), invert one
 bit segment (segment id = child id), inverse Gray -> binary.  The
 segments are the nodes of a binary segment tree over the N bit
 positions, in preorder: exactly 2N-1 of them for every N.  The layout
-and the tables are those of ``repro.core.population``; the stacked
-multi-resolution ``ScheduleTables`` wait for the port of the folded
-engine.
+and the tables are those of ``repro.core.population``, the stacked
+multi-resolution :class:`ScheduleTables` of the schedule engines
+included.
 
 The (start, end) table is a host constant, so any chunk of the
 population can be generated from child ids alone (the paper's "virtual
@@ -14,11 +14,15 @@ processing", and what the popstep kernel walks over).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from repro_torch.core.cache import get_cache
-from repro_torch.core.encoding import binary_to_gray, gray_to_binary
+from repro_torch.core.encoding import (
+    Encoding, _f32, binary_to_gray, decode_levels, gray_to_binary)
 
 # host tables and their per-device tensor copies (bounded, instrumented)
 _TABLES = get_cache("population.tables", maxsize=128)
@@ -133,3 +137,162 @@ def generate_population(parent_bits: torch.Tensor) -> torch.Tensor:
 
 def population_size(n_bits: int) -> int:
     return 2 * n_bits - 1
+
+
+# ---------------------------------------------------------------------------
+# stacked multi-resolution tables: the paper's step-5 escalation as data
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ResolutionEncoding(Encoding):
+    """One resolution of a schedule: an :class:`Encoding` whose lattice
+    step is the schedule table's float32 ``(hi - lo) / max_level``, a
+    float32 division (the reference's tables round it so), in place of the
+    double quotient rounded once.  The two differ by an ulp at some
+    (box, bits) pairs, e.g. [-5.12, 5.12] at 14 bits."""
+
+    step: float = 0.0
+
+    @property
+    def scale(self) -> float:
+        return self.step
+
+    def with_bits(self, bits: int) -> Encoding:
+        return Encoding(self.n_vars, bits, self.lo, self.hi)
+
+
+class ScheduleTables(NamedTuple):
+    """The whole resolution schedule as stacked device tables
+    (``repro.core.population.ScheduleTables``).
+
+    Every per-resolution constant (decode weights, encode layout, live
+    population size, lattice step) is padded to the width of the FINEST
+    resolution and stacked along a leading schedule axis.  At resolution
+    ``res_bits[r]`` the live string is the first ``n_vars * res_bits[r]``
+    positions of an ``n_max``-wide bit buffer (position ``i`` belongs to
+    variable ``i // res_bits[r]``, MSB-first); the rest is zero.
+
+    ``r`` is a host int here: the port's engines keep the resolution index
+    on the host, and each resolution's step is bound at its own width
+    (``encodings[r]``).  The stacked (R, p_max, n_max) XOR patterns are
+    built only on request (:meth:`stacked_patterns`): at the
+    remote-sensing MLP's 4 -> 16 bit schedule they take 1.66 GB, and no
+    engine reads them.  ``decode`` takes the levels from an exact matmul
+    and applies the affine map as two separately rounded operations
+    (no FMA)."""
+
+    n_vars: int
+    lo: float
+    hi: float
+    res_bits: tuple
+    n_max: int               # bit-buffer width: n_vars * max(res_bits)
+    p_max: int               # stacked population axis: 2 * n_max - 1
+    wmat: torch.Tensor       # (R, n_max, n_vars) f32 MSB-first bit weights
+    var: torch.Tensor        # (R, n_max) int64 variable id per position
+    shift: torch.Tensor      # (R, n_max) int64 bit shift per position
+    active: torch.Tensor     # (R, n_max) bool live-prefix mask
+    pop: torch.Tensor        # (R,) int64 live population 2*n_vars*bits - 1
+    scale: torch.Tensor      # (R,) f32 lattice step (hi - lo) / max_level
+    max_level: torch.Tensor  # (R,) f32 2^bits - 1
+    encodings: tuple         # (R,) ResolutionEncoding, one per resolution
+
+    @property
+    def n_res(self) -> int:
+        return len(self.res_bits)
+
+    def decode(self, bits: torch.Tensor, r: int) -> torch.Tensor:
+        """(..., n_max) bit buffer (or its live prefix) -> (..., n_vars)
+        floats at resolution ``r``."""
+        n = self.encodings[r].n_bits
+        levels = bits[..., :n].to(torch.float32) @ self.wmat[r, :n]
+        return decode_levels(levels, self.encodings[r])
+
+    def encode(self, x: torch.Tensor, r: int) -> torch.Tensor:
+        """(..., n_vars) floats -> (..., n_max) int8 bit buffer at
+        resolution ``r`` (zero past the live prefix)."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        ml = self.max_level[r]
+        lv = torch.round((x - _f32(self.lo, x)) / _f32(self.hi - self.lo, x)
+                         * ml)
+        lv = torch.minimum(torch.clamp(lv, min=0.0), ml).to(torch.int64)
+        b = (lv.index_select(-1, self.var[r]) >> self.shift[r]) & 1
+        return torch.where(self.active[r], b, 0).to(torch.int8)
+
+    def reencode(self, bits: torch.Tensor, r: int,
+                 nxt: int) -> torch.Tensor:
+        """Paper step 5: carry a parent to resolution ``nxt``'s lattice."""
+        return self.encode(self.decode(bits, r), nxt)
+
+    def children(self, bits: torch.Tensor, ids: torch.Tensor,
+                 r: int) -> torch.Tensor:
+        """Children ``ids`` (< p_max) of an (n_max,) parent at resolution
+        ``r``: the parent XOR the resolution's pattern row, padded; a pad
+        id (``>= pop[r]``) gives the parent itself."""
+        n = self.encodings[r].n_bits
+        pop = 2 * n - 1
+        pat = table_on("patterns", n, bits.device)
+        rows = pat.index_select(0, ids.clamp(max=pop - 1))
+        rows = torch.where((ids < pop)[:, None], rows, 0)
+        rows = torch.nn.functional.pad(rows, (0, self.n_max - n))
+        return torch.bitwise_xor(bits[None, :], rows)
+
+    def stacked_patterns(self) -> torch.Tensor:
+        """(R, p_max, n_max) int8: every resolution's binary-space XOR
+        patterns, zero-padded (the reference's ``patterns`` table)."""
+        ids = torch.arange(self.p_max, device=self.pop.device)
+        zero = torch.zeros(self.n_max, dtype=torch.int8,
+                           device=self.pop.device)
+        return torch.stack([self.children(zero, ids, r)
+                            for r in range(self.n_res)])
+
+
+def schedule_tables(n_vars: int, res_bits: tuple, lo: float, hi: float,
+                    device="cpu") -> ScheduleTables:
+    """Build (and memoize, one copy per schedule signature and device) the
+    stacked tables for a resolution schedule ``res_bits``."""
+    n_vars, lo, hi = int(n_vars), float(lo), float(hi)
+    res_bits = tuple(int(b) for b in res_bits)
+    device = torch.device(device)
+    return _TABLES.get(("schedule_tables", n_vars, res_bits, lo, hi,
+                        str(device)),
+                       lambda: _build_schedule_tables(n_vars, res_bits, lo,
+                                                      hi, device))
+
+
+def _build_schedule_tables(n_vars: int, res_bits: tuple, lo: float,
+                           hi: float, device: torch.device) -> ScheduleTables:
+    if not res_bits:
+        raise ValueError("res_bits must name at least one resolution")
+    n_max = n_vars * max(res_bits)
+    n_res = len(res_bits)
+    wmat = np.zeros((n_res, n_max, n_vars), np.float32)
+    var = np.zeros((n_res, n_max), np.int64)
+    shift = np.zeros((n_res, n_max), np.int64)
+    active = np.zeros((n_res, n_max), bool)
+    pop = np.zeros((n_res,), np.int64)
+    scale = np.zeros((n_res,), np.float32)
+    max_level = np.zeros((n_res,), np.float32)
+    i = np.arange(n_max)
+    for r, b in enumerate(res_bits):
+        weights = 2.0 ** np.arange(b - 1, -1, -1)
+        for v in range(n_vars):
+            wmat[r, v * b: (v + 1) * b, v] = weights
+        var[r] = np.minimum(i // b, n_vars - 1)
+        shift[r] = np.clip(b - 1 - i % b, 0, 31)
+        active[r] = i < n_vars * b
+        pop[r] = 2 * n_vars * b - 1
+        max_level[r] = 2.0**b - 1.0
+        # a float32 division, as numpy rounds the reference's table
+        scale[r] = (hi - lo) / max_level[r]
+    encodings = tuple(ResolutionEncoding(n_vars, b, lo, hi,
+                                         step=float(scale[r]))
+                      for r, b in enumerate(res_bits))
+
+    def on(a):
+        return torch.as_tensor(a).to(device)
+
+    return ScheduleTables(
+        n_vars=n_vars, lo=lo, hi=hi, res_bits=res_bits, n_max=n_max,
+        p_max=2 * n_max - 1, wmat=on(wmat), var=on(var), shift=on(shift),
+        active=on(active), pop=on(pop), scale=on(scale),
+        max_level=on(max_level), encodings=encodings)

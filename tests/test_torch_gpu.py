@@ -15,7 +15,10 @@ from repro_torch.core import objectives
 from repro_torch.core.distributed import _shard_plan
 from repro_torch.core.encoding import Encoding, pack_bits
 from repro_torch.core.population import table_on
-from repro_torch.core.solver import Distributed, Problem, solve
+from repro_torch.core import dgo
+from repro_torch.core.distributed import STALL_CHECK_EVERY
+from repro_torch.core.solver import (Clustered, Distributed, Fused, Problem,
+                                     Sequential, solve)
 from repro_torch.kernels._plain import nan_first_rows
 from repro_torch.kernels.fixedpoint import ops as fixedpoint
 from repro_torch.kernels.flash_attention import ops as flash
@@ -147,6 +150,88 @@ def test_main_path_goes_through_the_kernel(cuda):
     h_p, h_f = pop.extras["history"], fused.extras["history"]
     n = min(len(h_p), len(h_f))
     assert np.allclose(h_p[:n], h_f[:n], rtol=TOL, atol=TOL)
+
+
+def _counted(fn):
+    """Run ``fn`` with the popstep counts set to 0 first; returns its
+    result, launches and fold launches."""
+    ops.launches = ops.fold_launches = 0
+    out = fn()
+    return out, ops.launches, ops.fold_launches
+
+
+@pytest.mark.parametrize("name,kw,max_bits", [
+    ("rastrigin", {"n": 9}, 16), ("remote_sensing", {}, 8)])
+def test_fused_schedule_goes_through_the_kernel(cuda, name, kw, max_bits):
+    """One popstep launch a step at every resolution, no fold launch, and
+    at most ``STALL_CHECK_EVERY`` predicated launches a resolution; the
+    trace of the plain tensor step on the card, under the near-tie
+    rule."""
+    prob = Problem.get(name, **kw)
+    enc = prob.encoding
+    x0 = np.random.default_rng(1).uniform(enc.lo, enc.hi,
+                                          enc.n_vars).astype(np.float32)
+    res, n, n_fold = _counted(lambda: solve(
+        prob, Fused(max_bits=max_bits), x0=x0, max_iters=16))
+    n_res = len(range(enc.bits, max_bits + 1, 2))
+    assert n_fold == 0 and res.extras["finite"]
+    assert res.iterations <= n <= res.iterations + STALL_CHECK_EVERY * n_res
+    cfg = Fused(max_bits=max_bits)._config(prob, 16, max_bits, 2)
+    plain = dgo._fused_result(prob.objective, cfg, x0=x0, device=cuda,
+                              inner="fused")
+    assert _same_plateaus(res.trace, plain.trace)
+
+
+def _same_plateaus(a, b):
+    """The near-tie rule of ``chip_smoke.schedule_runs_match``: the values
+    two runs move through (steps within the bar of the last kept one
+    dropped) agree one for one."""
+    def plateaus(h):
+        out = [h[0]]
+        for v in h[1:]:
+            if not np.isclose(v, out[-1], rtol=TOL, atol=TOL):
+                out.append(v)
+        return np.asarray(out)
+
+    pa, pb = plateaus(a), plateaus(b)
+    return len(pa) == len(pb) and bool(np.isclose(pa, pb, rtol=TOL,
+                                                  atol=TOL).all())
+
+
+def test_folded_distributed_equals_host_chaining_on_card(cuda):
+    prob = Problem.get("remote_sensing")
+    x0 = np.random.default_rng(2).uniform(-4, 4, 680).astype(np.float32)
+    res, n, n_fold = _counted(lambda: solve(
+        prob, Distributed(max_bits=8), x0=x0, max_iters=16))
+    assert n_fold == 0 and res.iterations <= n
+    assert n <= res.iterations + STALL_CHECK_EVERY * 3
+    host = solve(prob, Distributed(max_bits=8, driver="host"), x0=x0,
+                 max_iters=16)
+    assert res.extras["history"] == host.extras["history"]
+    assert res.extras["bits_resolution"] == host.extras["bits_resolution"]
+    assert torch.equal(res.extras["bits"], host.extras["bits"])
+
+
+def test_clustered_is_its_fused_runs_on_card(cuda):
+    prob = Problem.get("rastrigin", n=9)
+    starts = prob.random_x0(np.array([0, 3], np.uint32), batch=3)
+    res, n, n_fold = _counted(lambda: solve(
+        prob, Clustered(n_clusters=3, max_bits=12), x0=starts,
+        max_iters=32))
+    singles = [solve(prob, Fused(max_bits=12), x0=x, max_iters=32)
+               for x in starts]
+    assert n_fold == 0 and n >= sum(r.iterations for r in singles)
+    assert float(res.best_f) == min(float(r.best_f) for r in singles)
+    assert res.extras["evaluations"] == sum(r.extras["evaluations"]
+                                            for r in singles)
+
+
+def test_sequential_and_fused_agree_on_card(cuda):
+    prob = Problem.get("rastrigin", n=3)
+    x0 = np.asarray([3.1, -2.2, 1.4], np.float32)
+    seq = solve(prob, Sequential(max_bits=12), x0=x0)
+    fused = solve(prob, Fused(max_bits=12), x0=x0)
+    assert abs(float(seq.best_f) - float(fused.best_f)) < 1e-3
 
 
 def _engine_step(cuda, obj, enc, seed):

@@ -12,6 +12,7 @@ The seeds were picked so that each run is compared over (almost) its
 whole length."""
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 
 from repro.core import solver as jsolver
 from repro.core.encoding import Encoding as JEnc
+from repro_torch.core import prng
 from repro_torch.core import solver as tsolver
 from repro_torch.core.encoding import Encoding as TEnc
 
@@ -175,12 +177,19 @@ def test_one_point_objective_is_batched_with_vmap():
 
 
 def test_seeded_start_is_reproducible_and_in_the_box():
-    a = tsolver.solve("shekel", seed=3, device="cpu")
-    b = tsolver.solve("shekel", seed=3, device="cpu")
+    """A seeded solve starts at the threefry twin's draw, the reference's
+    ``random_x0(PRNGKey(seed))`` bit for bit, inside the box."""
+    a = tsolver.solve("shekel", tsolver.Distributed(), seed=3, device="cpu")
+    b = tsolver.solve("shekel", tsolver.Distributed(), seed=3, device="cpu")
     assert a.extras["history"] == b.extras["history"]
-    x0 = tsolver.Problem.get("shekel").random_x0(
-        torch.Generator().manual_seed(3))
+    x0 = tsolver.Problem.get("shekel").random_x0(prng.PRNGKey(3))
+    ref = np.asarray(jsolver.Problem.get("shekel").random_x0(
+        jax.random.PRNGKey(3)))
+    assert np.array_equal(x0.view(np.int32), ref.view(np.int32))
     assert x0.shape == (4,) and bool(((x0 >= 0) & (x0 <= 10)).all())
+    pinned = tsolver.solve("shekel", tsolver.Distributed(), x0=x0,
+                           device="cpu")
+    assert pinned.extras["history"] == a.extras["history"]
     assert a.extras["finite"] and set(a.extras) == CONTRACT
 
 
@@ -209,10 +218,11 @@ def test_engine_builders_default_to_the_card(monkeypatch, builder):
 
 
 def test_unported_strategies_raise():
-    assert tsolver.strategy_names() == ("distributed",)
-    for key in ("fused", "sequential", "clustered", "batched"):
-        with pytest.raises(ValueError, match="registered: distributed"):
-            tsolver.solve("rastrigin", key, device="cpu")
+    """Only ``batched`` of the reference's keys is still unported."""
+    assert tsolver.strategy_names() == ("clustered", "distributed", "fused",
+                                        "sequential")
+    with pytest.raises(ValueError, match=r"'batched' \(not ported"):
+        tsolver.solve("rastrigin", "batched", device="cpu")
 
 
 def test_popstep_needs_a_device_form_on_cuda():
@@ -226,7 +236,6 @@ def test_popstep_needs_a_device_form_on_cuda():
 
 
 @pytest.mark.parametrize("strategy,match", [
-    (tsolver.Distributed(max_bits=12), "folded"),
     (tsolver.Distributed(quorum_mask=[False]), "quorum"),
     (tsolver.Distributed(driver="host", injector=object()), "injection"),
     (tsolver.Distributed(mesh=2), "mesh"),
