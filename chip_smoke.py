@@ -16,10 +16,16 @@ Phases (any failure exits non-zero; none is caught):
              encodings (the remote-sensing MLP is the full 680-variable,
              5,439-child step) and for rastrigin n=9 at every resolution
              of the second main path (8..16 bits, 143..287 children),
-             with the engine's virtual blocks and as one run: the winner,
+             and for the schedule phase's remote-sensing MLP at every
+             resolution of its 4 -> 16 bit schedule (5,439..21,759
+             children), from random parents (values of order one), with
+             the engine's virtual blocks, as one run (the fused engine's
+             step) and, for the schedule, with blocks planned at the
+             folded engine's p_max (4 -> 8 and 4 -> 16 bits): the winner,
              every child's value from the kernel's value buffer, and, for
              the remote-sensing MLP, those values bitwise against the
-             kernel with every hidden unit recomputed;
+             kernel with every hidden unit recomputed; each schedule
+             step's shape timed beside its bound (``by_shape``);
 3. fold    — the cross-block rule the kernel applies in its last block,
              launched alone (``ops.fold_partials``, counted in
              ``ops.fold_launches``, which the main path reads as 0) vs
@@ -41,8 +47,11 @@ Phases (any failure exits non-zero; none is caught):
              read after: one popstep launch per bound-step call, no fold
              launch, and between ``iterations`` and ``iterations + 16 x
              resolutions`` launches; the fused solve again through the
-             plain tensor step on the card (the same run unless it parts
-             at a near-tie) and under the profiler (idle share, device
+             plain tensor step on the card, held against a host replay of
+             both steps on the same parents (the same children step for
+             step up to a parting step, where every child's value must
+             agree within ``value_bar`` and the two choices be a
+             near-tie), and under the profiler (idle share, device
              activities per step); the folded history equal to
              ``Distributed(driver="host", max_bits=8)``'s step for step;
              ``Clustered(n_clusters=8)`` on rastrigin n=9, whose winner
@@ -293,30 +302,48 @@ REGISTRY = ("quadratic", "rastrigin", "ackley", "griewank", "shekel",
 RAST_SCHEDULE = (8, 10, 12, 14, 16)     # the second main path's resolutions
 
 
-def _step_inputs(enc, dev):
-    """The engine's step inputs at its default virtual block of 256:
-    (clipped ids, valid mask, block)."""
+def _step_inputs(enc, dev, plan_pop=None):
+    """A step's inputs at the engines' default virtual block of 256, the
+    blocks planned over ``plan_pop`` ids (default: the step's own
+    population; the folded engine plans every resolution at its finest,
+    p_max): (clipped ids, valid mask, block)."""
     import torch
 
     from repro_torch.core.distributed import _shard_plan
 
-    plan = _shard_plan(enc.population, 1, 256)
+    plan = _shard_plan(plan_pop or enc.population, 1, 256)
     ids = torch.arange(plan.n_blocks * plan.block, device=dev)
-    valid = ids < plan.pop
-    return ids.clamp(max=plan.pop - 1), valid, plan.block
+    valid = ids < enc.population
+    return ids.clamp(max=enc.population - 1), valid, plan.block
 
 
-def compare_step(obj, enc, parent, dev, *, virtual_block):
+def _one_run(enc, dev):
+    """The fused engine's step inputs: every child as one run."""
+    import torch
+
+    ids = torch.arange(enc.population, device=dev)
+    return ids, torch.ones_like(ids, dtype=torch.bool), None
+
+
+def _geometries(enc, dev, p_maxes=()):
+    """The step geometries the engines bind at ``enc``: (label, ids,
+    valid, virtual block) for the distributed engine's own-width virtual
+    blocks, one run (the fused engine's; a NaN child wins) and, for each
+    p_max in ``p_maxes``, the folded engine's blocks planned at it."""
+    out = [("virtual blocks", *_step_inputs(enc, dev)),
+           ("one run", *_one_run(enc, dev))]
+    for p_max in p_maxes:
+        out.append((f"blocks at p_max {p_max}",
+                    *_step_inputs(enc, dev, p_max)))
+    return out
+
+
+def compare_step(obj, enc, parent, dev, ids, valid, vb):
     """One step through the kernel and the plain version on the same
     tensors; returns (kernel (val, id), plain (val, id), the kernel's
     per-child values, the plain per-child values)."""
     from repro_torch.kernels.popstep import ops
 
-    ids, valid, block = _step_inputs(enc, dev)
-    vb = block if virtual_block else None
-    if not virtual_block:
-        ids = ids[: enc.population]
-        valid = valid[: enc.population]
     step = ops.prepare_step_ids(obj, ids, enc, valid=valid, virtual_block=vb)
     kv, ki = step(parent)
     # the launch's value buffer (off the card, a rehearsal: the plain values)
@@ -328,64 +355,61 @@ def compare_step(obj, enc, parent, dev, *, virtual_block):
     return (float(kv), int(ki)), (float(pv), int(pi)), kvals, vals
 
 
-def time_step(obj, enc, parent, dev, reps: int = 20):
+def time_step(obj, enc, parent, dev, ids, valid, vb, reps: int = 20):
     """(kernel device ms, wrapper-call ms, plain-version device ms, bind
-    ms) of one engine-shaped step (virtual blocks of the engine's plan);
-    binding the step (``prepare_step_ids``, host work and its device
-    copies) is timed on the host clock, from one synchronize to the
-    next."""
+    ms) of one step at the given geometry; binding the step
+    (``prepare_step_ids``, host work and its device copies) is timed on
+    the host clock, from one synchronize to the next."""
     import torch
 
     from repro_torch.kernels.popstep import ops
 
-    ids, valid, block = _step_inputs(enc, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    step = ops.prepare_step_ids(obj, ids, enc, valid=valid,
-                                virtual_block=block)
+    step = ops.prepare_step_ids(obj, ids, enc, valid=valid, virtual_block=vb)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     b_ms = (time.perf_counter() - t0) * 1e3
     k_ms = device_ms(lambda: step(parent), reps, dev, name="popstep_kernel")
     c_ms = time_ms(lambda: step(parent), reps, dev)
     p_ms = device_ms(lambda: ops.population_step_ids_plain(
-        obj, parent, ids, enc, valid=valid, virtual_block=block), reps, dev)
+        obj, parent, ids, enc, valid=valid, virtual_block=vb), reps, dev)
     return k_ms, c_ms, p_ms, b_ms
 
 
-def check_step(label, name, obj, enc, parent, dev) -> float:
-    """Kernel vs plain on one step, with the engine's virtual blocks and
-    as one run: the winner and every child's value (the values of masked
-    rows are +inf in both); for the remote-sensing MLP the kernel's values
-    also bitwise against the kernel with every hidden unit recomputed.
-    Returns the largest |error| of a child's value."""
+def check_step(label, name, obj, enc, parent, dev, p_maxes=()) -> float:
+    """Kernel vs plain on one step at each of the engines' geometries
+    (:func:`_geometries`): the winner and every child's value (the values
+    of masked rows are +inf in both); for the remote-sensing MLP the
+    kernel's values also bitwise against the kernel with every hidden unit
+    recomputed.  Returns the largest |error| of a child's value."""
     import torch
 
     from repro_torch.kernels.popstep import ops
 
     atol, why = long_sum_atol(name, enc)
     max_err = 0.0
-    for virtual in (True, False):
+    for mode, ids, valid, vb in _geometries(enc, dev, p_maxes):
         (kv, ki), (pv, pi), kvals, vals = compare_step(obj, enc, parent, dev,
-                                                       virtual_block=virtual)
+                                                       ids, valid, vb)
         check(kvals.shape == vals.shape and bool(torch.isclose(
             kvals, vals, rtol=RTOL, atol=atol).all()),
-              f"{label}: a child's value differs from the plain version's "
-              f"beyond the bar (atol {atol:.3g})")
+              f"{label} {mode}: a child's value differs from the plain "
+              f"version's beyond the bar (atol {atol:.3g})")
         fin = torch.isfinite(vals)
         err = (float((kvals[fin].double() - vals[fin].double()).abs().max())
                if bool(fin.any()) else 0.0)
         max_err = max(max_err, err)
         check(np.isclose(kv, pv, rtol=RTOL, atol=atol),
-              f"{label}: kernel {kv!r} vs plain {pv!r} (atol {atol:.3g})")
+              f"{label} {mode}: kernel {kv!r} vs plain {pv!r} (atol "
+              f"{atol:.3g})")
         if ki != pi:     # a near-tie: both winners within the bar
             a, b = float(vals[ki]), float(vals[pi])
             check(np.isclose(a, b, rtol=RTOL, atol=atol),
-                  f"{label}: kernel id {ki} ({a!r}) vs plain id {pi} "
-                  f"({b!r}) is not a near-tie")
-        mode = "virtual blocks" if virtual else "one run"
-        print(f"[kernel] {label:<22} pop {enc.population:>5} {mode:<14} "
+                  f"{label} {mode}: kernel id {ki} ({a!r}) vs plain id "
+                  f"{pi} ({b!r}) is not a near-tie")
+        print(f"[kernel] {label:<22} pop {enc.population:>5} {mode:<20} "
               f"kernel ({kv:.7g}, {ki}) plain ({pv:.7g}, {pi}); "
               f"{kvals.shape[0]} child values, max |err| {err:.3g}"
               + (f"  [{why}]" if why else ""))
@@ -402,13 +426,33 @@ def check_step(label, name, obj, enc, parent, dev) -> float:
     return max_err
 
 
+def _random_parent(rng, enc, dev):
+    import torch
+
+    return torch.as_tensor(rng.integers(0, 2, enc.n_bits).astype(np.int8),
+                           device=dev)
+
+
+def sched_resolutions():
+    """The schedule phase's problem, its Fused resolutions and its folded
+    Distributed run's (``FOLDED_EXTRA_BITS`` above the start)."""
+    from repro_torch.core.solver import Fused, Problem
+
+    name, kw = SCHED_PROBLEM
+    prob = Problem.get(name, **kw)
+    res = Fused()._config(prob, SCHED_ITERS, None, 2).resolutions()
+    folded = [b for b in res if b <= prob.encoding.bits + FOLDED_EXTRA_BITS]
+    return name, prob, res, folded
+
+
 def phase_kernel_vs_plain(dev) -> dict:
     """Every registry objective at its registry encoding, then the second
     main path's problem (rastrigin n=9) at every resolution of its
-    8 -> 16 bit schedule; times at remote_sensing and at rastrigin n=9,
-    16 bits."""
-    import torch
-
+    8 -> 16 bit schedule and the schedule phase's problem (the
+    remote-sensing MLP) at every resolution of its 4 -> 16 bit schedule,
+    from random parents, at each geometry its engines bind; times at
+    remote_sensing (registry encoding and every schedule step's shape)
+    and at rastrigin n=9, 16 bits."""
     from repro_torch.core import objectives
 
     rng = np.random.default_rng(0)
@@ -417,73 +461,117 @@ def phase_kernel_vs_plain(dev) -> dict:
     for name in REGISTRY:
         obj = objectives.get(name)
         enc = obj.encoding
-        parent = torch.as_tensor(
-            rng.integers(0, 2, enc.n_bits).astype(np.int8), device=dev)
+        parent = _random_parent(rng, enc, dev)
         max_err = max(max_err, check_step(name, name, obj, enc, parent, dev))
-        k_ms, c_ms, p_ms, b_ms = time_step(obj, enc, parent, dev)
+        ids, valid, block = _step_inputs(enc, dev)
+        k_ms, c_ms, p_ms, b_ms = time_step(obj, enc, parent, dev, ids, valid,
+                                           block)
         print(f"[time] {name:<15} kernel {k_ms:.4f} ms (device), wrapper "
               f"call {c_ms:.4f} ms (CUDA events), plain {p_ms:.4f} ms "
               f"(device); binding the step {b_ms:.3f} ms (host)")
         if name == "remote_sensing":
-            ids, valid, block = _step_inputs(enc, dev)
             rs = dict(obj=obj, enc=enc, ids=ids, valid=valid, block=block,
-                      n_live=int(valid.sum()), n_rows=ids.shape[0], ms=k_ms,
-                      plain_ms=p_ms)
+                      ms=k_ms, plain_ms=p_ms)
     rast = objectives.get("rastrigin", n=9)
     for b in RAST_SCHEDULE:
         enc_b = rast.encoding.with_bits(b)
-        parent = torch.as_tensor(
-            rng.integers(0, 2, enc_b.n_bits).astype(np.int8), device=dev)
+        parent = _random_parent(rng, enc_b, dev)
         max_err = max(max_err, check_step(f"rastrigin n=9 {b} bits",
                                           "rastrigin", rast, enc_b, parent,
                                           dev))
-    k_ms, c_ms, p_ms, b_ms = time_step(rast, enc_b, parent, dev)
+    ids, valid, block = _step_inputs(enc_b, dev)
+    k_ms, c_ms, p_ms, b_ms = time_step(rast, enc_b, parent, dev, ids, valid,
+                                       block)
     print(f"[time] rastrigin n=9 16 bits (pop {enc_b.population}) kernel "
           f"{k_ms:.4f} ms (device), wrapper call {c_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms (device); binding the step {b_ms:.3f} ms (host)")
     rs["rastrigin_ms"] = k_ms
+
+    # the schedule phase's steps: Fused's one run at every resolution, the
+    # folded engine's blocks planned at its p_max (and at the full
+    # schedule's, Distributed(max_bits=16)'s)
+    name, prob, res, folded = sched_resolutions()
+    obj, enc0 = prob.objective, prob.encoding
+    p_full = 2 * enc0.n_vars * res[-1] - 1
+    p_fold = 2 * enc0.n_vars * folded[-1] - 1
+    rs["by_shape"] = {}
+    for b in res:
+        enc_b = enc0.with_bits(b)
+        parent = _random_parent(rng, enc_b, dev)
+        p_maxes = (p_full,) + ((p_fold,) if b in folded else ())
+        max_err = max(max_err, check_step(f"{name} {b} bits", name, obj,
+                                          enc_b, parent, dev, p_maxes))
+        shapes = [("fused one run", *_one_run(enc_b, dev))]
+        if b in folded:
+            shapes.append((f"folded, p_max {p_fold}",
+                           *_step_inputs(enc_b, dev, p_fold)))
+        for mode, ids, valid, vb in shapes:
+            k_ms, c_ms, p_ms, b_ms = time_step(obj, enc_b, parent, dev, ids,
+                                               valid, vb)
+            bound, by = popstep_work_bound(name, obj, enc_b, ids, valid,
+                                           vb)[1]
+            label = f"{name} {b} bits {mode}"
+            rs["by_shape"][label] = {"ms": k_ms, "plain_ms": p_ms,
+                                     "bound_ms": bound, "bound_by": by}
+            print(f"[time] {label} (pop {enc_b.population}, {ids.shape[0]} "
+                  f"rows) kernel {k_ms:.4f} ms (device), wrapper call "
+                  f"{c_ms:.4f} ms, plain {p_ms:.4f} ms (device), bound "
+                  f"{bound:.4f} ms ({by}); binding the step {b_ms:.3f} ms "
+                  f"(host)")
     rs["max_abs_err"] = max_err
     return rs
 
 
-def popstep_bound_ms(rs: dict) -> tuple[float, str]:
-    """Least time for one remote-sensing step: the work the step needs,
-    which counts layer 2 for every live child, layer 1 for the hidden units
-    its mask marks (the others are bitwise the parent's) and the parent's
-    layer 1 once; multiply-adds (2 FLOPs each) over the float32 peak vs
-    inputs and outputs over the memory rate.  The full work, both layers
-    for every live child, goes to ``rs["full_work_bound_ms"]``.
-    Transcendentals are not counted."""
+def popstep_work_bound(name, obj, enc, ids, valid, vb) -> tuple:
+    """Least time for one step of ``obj`` over ``ids`` (virtual blocks of
+    ``vb``, one run when None): ((full-work ms, by), (needed-work ms, by)).
+    For the remote-sensing MLP the needed work counts layer 2 for every
+    live child, layer 1 for the hidden units its mask marks (the others
+    are bitwise the parent's) and the parent's layer 1 once; the full work
+    both layers for every live child; multiply-adds (2 FLOPs each) over
+    the float32 peak vs inputs and outputs over the memory rate.  Other
+    objectives: the bytes alone.  Transcendentals are not counted."""
     from repro_torch.core.objectives import RS_CLASSES, RS_HIDDEN, RS_IN
     from repro_torch.kernels.popstep import ops
 
-    enc = rs["enc"]
-    m = rs["obj"].kernel.consts[0].shape[0]
-    masks = ops.hidden_unit_masks(enc.n_bits, enc.bits)
-    live = rs["ids"].cpu().numpy()[rs["valid"].cpu().numpy()]
-    units = int(((masks[live, None] >> np.arange(RS_HIDDEN)) & 1).sum())
-    flops = rs["n_live"] * m * (RS_IN * RS_HIDDEN + RS_HIDDEN * RS_CLASSES) * 2
-    reused = (rs["n_live"] * m * RS_HIDDEN * RS_CLASSES
-              + (units + RS_HIDDEN) * m * RS_IN) * 2
+    n_rows = ids.shape[0]
+    n_live = int(valid.sum())
+    n_vblocks = n_rows // (vb or n_rows)
     # parent bits, then starts/ends/ok/order per row, its mask, its value
     # written, one id read per virtual block, the constants and the
     # (value, id) written out
-    n_vblocks = rs["n_rows"] // rs["block"]
-    nbytes = (enc.n_bits + rs["n_rows"] * (4 * 4 + 8 + 4) + 4 * n_vblocks
-              + sum(c.numel() * 4 for c in rs["obj"].kernel.consts) + 8)
+    nbytes = (enc.n_bits + n_rows * (4 * 4 + 8 + 4) + 4 * n_vblocks
+              + sum(c.numel() * 4 for c in obj.kernel.consts) + 8)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if name == "remote_sensing":
+        m = obj.kernel.consts[0].shape[0]
+        masks = ops.hidden_unit_masks(enc.n_bits, enc.bits)
+        live = ids.cpu().numpy()[valid.cpu().numpy()]
+        units = int(((masks[live, None] >> np.arange(RS_HIDDEN)) & 1).sum())
+        flops = n_live * m * (RS_IN * RS_HIDDEN + RS_HIDDEN * RS_CLASSES) * 2
+        reused = (n_live * m * RS_HIDDEN * RS_CLASSES
+                  + (units + RS_HIDDEN) * m * RS_IN) * 2
+    else:
+        flops = reused = 0
     out = []
     for f in (flops, reused):
         t_ops = f / FP32_PEAK_FLOPS * 1e3
         out.append((t_ops, "operations") if t_ops >= t_bytes
                    else (t_bytes, "bytes"))
-    rs["full_work_bound_ms"] = out[0][0]
-    print(f"[kernel] remote_sensing bound: full work {flops / 1e9:.4f} GFLOP "
-          f"-> {out[0][0] * 1e3:.2f} us; reused work {reused / 1e9:.4f} "
-          f"GFLOP ({units / max(rs['n_live'], 1):.2f} of {RS_HIDDEN} hidden "
-          f"units a child) -> {out[1][0] * 1e3:.2f} us; {nbytes} B -> "
-          f"{t_bytes * 1e3:.4f} us")
-    return out[1]
+    return tuple(out)
+
+
+def popstep_bound_ms(rs: dict) -> tuple[float, str]:
+    """Least time for the registry remote-sensing step
+    (:func:`popstep_work_bound`'s needed work); the full work, both layers
+    for every live child, goes to ``rs["full_work_bound_ms"]``."""
+    full, needed = popstep_work_bound("remote_sensing", rs["obj"], rs["enc"],
+                                      rs["ids"], rs["valid"], rs["block"])
+    rs["full_work_bound_ms"] = full[0]
+    print(f"[kernel] remote_sensing bound: full work -> "
+          f"{full[0] * 1e3:.2f} us ({full[1]}); needed work -> "
+          f"{needed[0] * 1e3:.2f} us ({needed[1]})")
+    return needed
 
 
 # ---------------------------------------------------------------------------
@@ -795,48 +883,178 @@ def phase_main_path(dev, rs_ms: float, rast_ms: float) -> dict:
 
 SCHED_ITERS = 64          # max_iters of the remote-sensing schedule solves
 SCHED_PROBLEM = ("remote_sensing", {})      # full width: 680 vars, 4->16 bits
+FOLDED_EXTRA_BITS = 4     # the folded Distributed run: start -> start + 4 bits
 CLUSTER_PROBLEM = ("rastrigin", {"n": 9})
 N_CLUSTERS = 8
 SEQ_TOTAL_ITERS = 1024    # Sequential's total-iteration guard
 STRATEGY_SPREAD = 1e-3    # the reference's strategy-parity bar
 
 
-def _near(a, b) -> bool:
-    return bool(np.isclose(a, b, rtol=RTOL, atol=ATOL))
+SUM_FLOOR = 2.0**-20   # the remote-sensing loss's float32 floor (value_bar)
 
 
-def _plateaus(h) -> list:
-    """The values a run moves through: steps within the bar of the last
-    kept value dropped (a stall's repeat, or an improvement below the
-    bar that one step engine may see and the other not)."""
-    out = [h[0]]
-    for v in h[1:]:
-        if not _near(v, out[-1]):
-            out.append(v)
-    return out
+def value_bar(name, enc, v, atol=ATOL):
+    """|kernel - plain| allowed for a value ``v`` (scalar or array) of
+    objective ``name``: ``RTOL * |v| + atol``, and for the remote-sensing
+    MLP at most ``SUM_FLOOR + 2 * dz * min(1, |v|)``.  There a sample's
+    loss is ``log(se)`` with ``se`` the sum of its 8 class exps, the
+    largest exactly 1: each of the 7 other additions rounds by up to 2^-24
+    near 1, so two orders differ by < 2^-20 (``SUM_FLOOR``); a logit error
+    ``dz`` (``long_sum_atol``) moves the loss by at most 2 dz (1 - p_y) <=
+    2 dz min(1, loss).  Below the floor a loss counts the samples whose
+    ``se`` rounds above 1 (quanta of 2^-23 / 256 = 4.66e-10), which two
+    evaluation orders may count differently."""
+    v = np.abs(np.asarray(v, np.float64))
+    bar = RTOL * v + atol
+    if name == "remote_sensing":
+        dz = long_sum_atol(name, enc)[0]
+        bar = np.minimum(bar, SUM_FLOOR + 2 * dz * np.minimum(1.0, v))
+    return bar
 
 
-def schedule_runs_match(h_a, h_b) -> str:
-    """'' if two runs' step sequences agree within the bar step for step;
-    else they may part only at a near-tie (one takes a step the other
-    does not, improving by less than the bar, and the two go on a step
-    apart): the values they move through must agree one for one and a
-    step within the bar must exist.  Fails otherwise."""
-    h_a, h_b = np.asarray(h_a, np.float64), np.asarray(h_b, np.float64)
-    n = min(len(h_a), len(h_b))
-    if len(h_a) == len(h_b) and np.isclose(h_a, h_b, rtol=RTOL,
-                                           atol=ATOL).all():
-        return ""
-    p_a, p_b = _plateaus(h_a), _plateaus(h_b)
-    check(len(p_a) == len(p_b) and all(map(_near, p_a, p_b)),
-          f"the runs part beyond a near-tie: {p_a} vs {p_b}")
-    tiny = [bool(np.any((np.diff(h) < 0) & np.isclose(
-        h[1:], h[:-1], rtol=RTOL, atol=ATOL))) for h in (h_a, h_b)]
-    check(any(tiny), "the runs part without a step within the bar")
-    close = np.isclose(h_a[:n], h_b[:n], rtol=RTOL, atol=ATOL)
-    t = n if close.all() else int(np.argmin(close))
-    return (f"near-tie: {len(h_a)} vs {len(h_b)} entries, parting at "
-            f"entry {t}, through the same {len(p_a)} values")
+def replay_schedule(problem, cfg, x0, dev):
+    """The fused engine's schedule replayed on the host with both of its
+    steps, the popstep kernel's and the plain tensor step's, on the same
+    parent each step, under the engine's rules (a stall or
+    ``max_iters_per_resolution`` steps escalate); it stops at the first
+    step where the two choose differently.  Returns (each step's
+    best-so-far value through the kernel's steps, the same through the
+    plain steps, the parting step or None): the parting step is a dict of
+    the resolution, the step's number, the parent and both steps'
+    results."""
+    import torch
+
+    from repro_torch.core import dgo
+    from repro_torch.core.distributed import _escalate, _initial_at
+
+    obj = problem.objective
+    st, tables = dgo._engine_tables(cfg, dev)
+    k_steps = dgo._fused_steps(obj, tables, None, dev)
+    p_steps = dgo._fused_steps(obj, tables, "fused", dev)
+    bits, val = _initial_at(obj, tables, x0, dev)
+    k_val = p_val = val
+    start = float(val)
+    k_tr, p_tr = [], []
+    k_best = p_best = start
+    for r in range(tables.n_res):
+        if r > 0:
+            bits, val = _escalate(obj.fn, tables, bits, r - 1, r)
+            k_val = p_val = val
+            # a re-encode counts where it beats the best, as in the engine
+            v = float(val)
+            k_best = v if v < k_best else k_best
+            p_best = v if v < p_best else p_best
+        for it in range(st.max_iters):
+            kb, kv, ki = k_steps[r](bits, k_val, it)
+            pb, pv, pi = p_steps[r](bits, p_val, it)
+            if bool(ki) != bool(pi) or not torch.equal(kb, pb):
+                return k_tr, p_tr, dict(
+                    r=r, step=len(k_tr) + 1, bits=bits, k_val=k_val,
+                    p_val=p_val, kernel=(kb, kv, bool(ki)),
+                    plain=(pb, pv, bool(pi)))
+            bits, k_val, p_val = kb, kv, pv
+            k_best = float(kv) if float(kv) < k_best else k_best
+            p_best = float(pv) if float(pv) < p_best else p_best
+            k_tr.append(np.float32(k_best))
+            p_tr.append(np.float32(p_best))
+            if not bool(ki):
+                break
+    return k_tr, p_tr, None
+
+
+def _choice(pat, parent, new_bits, improved):
+    """The child id a step took (XOR pattern of its new bits), or None
+    where it kept the parent."""
+    import torch
+
+    if not improved:
+        return None
+    diff = torch.bitwise_xor(new_bits, parent)
+    return int(torch.nonzero((pat == diff).all(1))[0, 0])
+
+
+def judge_parting(name, problem, cfg, part, dev) -> tuple[bool, str]:
+    """The step where the kernel's and the plain step's runs part: every
+    child's value at that parent through the kernel and through the plain
+    version must agree within :func:`value_bar` (phase 2's ``atol``), and
+    each step's choice (a child, or the parent kept) must be valued the
+    same by both within the bar (``ATOL``), so that the two choices are a
+    near-tie.  Returns (ok, what was seen)."""
+    import torch
+
+    from repro_torch.core import dgo
+    from repro_torch.core.population import table_on
+    from repro_torch.kernels.popstep import ops
+
+    _, tables = dgo._engine_tables(cfg, dev)
+    enc = tables.encodings[part["r"]]
+    obj, bits = problem.objective, part["bits"]
+    ids = torch.arange(enc.population, device=dev)
+    if dev.type == "cuda":
+        step = ops.prepare_step_ids(obj, ids, enc)
+        step(bits)
+        k_vals = step.values
+    else:
+        k_vals = ops.child_values(obj, bits, ids, enc)
+    p_vals = ops.child_values_plain(obj, bits, ids, enc)
+    k_np, p_np = (k_vals.double().cpu().numpy(),
+                  p_vals.double().cpu().numpy())
+    atol = long_sum_atol(name, enc)[0]
+    fin = np.isfinite(p_np)
+    same_fin = np.array_equal(fin, np.isfinite(k_np))
+    err = np.abs(k_np[fin] - p_np[fin])
+    worst = float((err / value_bar(name, enc, p_np[fin], atol)).max()) \
+        if fin.any() else 0.0
+    pat = table_on("patterns", enc.n_bits, dev)
+    seen, ok = [], same_fin and worst <= 1.0
+    for who, (nb, _, imp) in (("kernel", part["kernel"]),
+                              ("plain", part["plain"])):
+        c = _choice(pat, bits, nb, imp)
+        kv = float(part["k_val"]) if c is None else float(k_np[c])
+        pv = float(part["p_val"]) if c is None else float(p_np[c])
+        bar = float(value_bar(name, enc, pv))
+        ok = ok and abs(kv - pv) <= bar
+        seen.append((who, "parent kept" if c is None else f"child {c}", kv,
+                     pv, bar))
+    (_, _, _, pv_k, bar_k), (_, _, _, pv_p, bar_p) = seen
+    ok = ok and abs(pv_k - pv_p) <= bar_k + bar_p
+    note = (f"part at step {part['step']} ({enc.bits} bits): " + "; ".join(
+        f"{who} took {c} (kernel {kv!r}, plain {pv!r}, bar {bar:.3g})"
+        for who, c, kv, pv, bar in seen)
+        + f"; all {enc.population} children within the bar (worst "
+        f"{worst:.3g} of it{'' if same_fin else ', NON-FINITE MISMATCH'})")
+    return ok, note
+
+
+def schedule_runs_match(name, problem, cfg, x0, trace_k, trace_p,
+                        dev) -> tuple[bool, str]:
+    """Two fused runs of ``problem`` from ``x0``, through the popstep
+    kernel (``trace_k``) and through the plain tensor step (``trace_p``),
+    agree when both traces equal the host replay's step for step
+    (:func:`replay_schedule`), to the end when the replay never parts,
+    else up to the parting step, which must be a near-tie
+    (:func:`judge_parting`).  Returns (ok, what was seen)."""
+    k_tr, p_tr, part = replay_schedule(problem, cfg, x0, dev)
+    n = len(k_tr)
+    trace_k = np.asarray(trace_k, np.float32)
+    trace_p = np.asarray(trace_p, np.float32)
+    if part is None:
+        ok = (np.array_equal(trace_k, np.asarray(k_tr, np.float32))
+              and np.array_equal(trace_p, np.asarray(p_tr, np.float32)))
+        return ok, (f"both runs == the host replay step for step ({n} "
+                    f"steps, the same children)" if ok else
+                    f"a run differs from the host replay ({len(trace_k)} "
+                    f"and {len(trace_p)} steps vs {n})")
+    same = (len(trace_k) >= n and len(trace_p) >= n
+            and np.array_equal(trace_k[:n], np.asarray(k_tr, np.float32))
+            and np.array_equal(trace_p[:n], np.asarray(p_tr, np.float32)))
+    if not same:
+        return False, (f"a run differs from the host replay before its "
+                       f"parting step {n + 1}")
+    ok, note = judge_parting(name, problem, cfg, part, dev)
+    return ok, (f"the same children for {n} steps, then a {note}; "
+                f"{len(trace_k)} vs {len(trace_p)} steps in all, best "
+                f"{float(trace_k[-1])!r} vs {float(trace_p[-1])!r}")
 
 
 def _report(label, res, wall, counts, n_res, steps=None) -> int:
@@ -903,11 +1121,14 @@ def phase_schedule(dev) -> dict:
         import torch
         torch.cuda.synchronize(dev)
     wall_p = time.perf_counter() - t0
-    note = schedule_runs_match(res_f.trace, plain.trace)
     print(f"[schedule] {label} through the plain tensor step: "
           f"{plain.iterations} iterations, best_f {float(plain.value):.7g}, "
-          f"wall {wall_p:.3f} s; traces "
-          f"{note or 'match step for step'}")
+          f"wall {wall_p:.3f} s")
+    ok, note = schedule_runs_match(name, rs, cfg, x0, res_f.trace,
+                                   plain.trace, dev)
+    print(f"[schedule] {label} kernel vs plain runs: {note}")
+    check(ok, f"{label}: the kernel's and the plain step's runs part "
+              f"beyond a near-tie: {note}")
     res_w, wall_w = _solve_timed(rs, fused, x0, SCHED_ITERS, dev)
     check(np.array_equal(res_w.trace, res_f.trace),
           f"{label}: a repeated solve gave another trace")
@@ -938,13 +1159,14 @@ def phase_schedule(dev) -> dict:
                                f"popstep_fold_kernel {n_fold_dev} times")
 
     # the folded Distributed engine, 4 -> 8 bits, against host chaining
-    folded = Distributed(max_bits=enc.bits + 4)
+    top = enc.bits + FOLDED_EXTRA_BITS
+    folded = Distributed(max_bits=top)
     res_d, wall_d, n_d = _counted_solve(rs, folded, x0, SCHED_ITERS, dev)
-    label = f"{name} distributed folded {enc.bits}->{enc.bits + 4} bits"
+    label = f"{name} distributed folded {enc.bits}->{top} bits"
     _report(label, res_d, wall_d, n_d, len(res_d.extras["schedule"]))
     counts[f"schedule: {label}"] = n_d[:2]
     res_h, wall_h = _solve_timed(
-        rs, Distributed(max_bits=enc.bits + 4, driver="host"), x0,
+        rs, Distributed(max_bits=top, driver="host"), x0,
         SCHED_ITERS, dev)
     check(res_d.extras["history"] == res_h.extras["history"],
           f"{label}: the folded history differs from host chaining")
@@ -1937,7 +2159,8 @@ def main() -> None:
         "ms": rs["ms"], "plain_ms": rs["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "full_work_bound_ms": rs["full_work_bound_ms"],
-        "by_path": {path: n for path, (n, _) in by_path.items()}}, {
+        "by_path": {path: n for path, (n, _) in by_path.items()},
+        "by_shape": rs["by_shape"]}, {
         "name": "popstep_fold", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:110",
         "launches": n_fold, "max_abs_err": fold["max_abs_err"],

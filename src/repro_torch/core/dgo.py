@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from types import SimpleNamespace
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -38,10 +39,8 @@ from repro_torch.core import prng
 from repro_torch.core.distributed import (
     _build_shard_step, _initial_at, _predicated_run, _run_schedule,
     _schedule_inner, _shard_plan, resolve_device)
-from repro_torch.core.encoding import Encoding, decode
-from repro_torch.core.population import (
-    generate_population, schedule_tables, segment_table)
-from repro_torch.kernels._plain import argmin_nan_first
+from repro_torch.core.encoding import Encoding
+from repro_torch.core.population import schedule_tables, segment_table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,26 +75,30 @@ class DGOResult(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# one DGO iteration (paper steps 2-4)
+# one DGO iteration (paper steps 2-4): the reference's public names; no
+# engine runs them (each engine binds its steps in core.distributed)
 # ---------------------------------------------------------------------------
+
+def _iteration_step(f_batch: Callable[[torch.Tensor], torch.Tensor],
+                    enc: Encoding, device: torch.device):
+    """The plain one-run step of ``core.distributed`` through the literal
+    generate -> decode -> evaluate pipeline (inner ``"jnp"``)."""
+    plan = _shard_plan(enc.population, 1, enc.population)
+    return _build_shard_step(SimpleNamespace(fn=f_batch), enc, plan, "jnp",
+                             device)(None)
+
 
 def dgo_iteration(f_batch: Callable[[torch.Tensor], torch.Tensor],
                   enc: Encoding, parent_bits: torch.Tensor,
                   parent_val: torch.Tensor) -> DGOState:
-    """Generate all 2N-1 children, evaluate, select (steps 2-4), by the
-    literal generate -> decode -> evaluate pipeline.  ``f_batch`` maps
-    (P, n_vars) -> (P,); the first NaN wins the selection, else the first
-    minimum, and the parent is kept unless the winner is strictly
-    better."""
-    children = generate_population(parent_bits)
-    vals = f_batch(decode(children, enc)).to(torch.float32)
-    best = argmin_nan_first(vals)
-    best_val = vals[best]
-    improved = best_val < parent_val
-    new_bits = torch.where(improved, children[best], parent_bits)
-    new_val = torch.where(improved, best_val, parent_val)
-    return DGOState(new_bits.to(torch.int8), new_val, improved,
-                    torch.ones((), dtype=torch.int64))
+    """Generate all 2N-1 children, evaluate, select (steps 2-4).
+    ``f_batch`` maps (P, n_vars) -> (P,); a NaN child wins the selection
+    (and keeps the parent), else the first minimum, and the parent is kept
+    unless the winner is strictly better."""
+    step = _iteration_step(f_batch, enc, parent_bits.device)
+    bits, val, improved = step(parent_bits.to(torch.int8),
+                               parent_val.to(torch.float32))
+    return DGOState(bits, val, improved, torch.ones((), dtype=torch.int64))
 
 
 def dgo_resolution_step(f_batch: Callable[[torch.Tensor], torch.Tensor],
@@ -106,12 +109,9 @@ def dgo_resolution_step(f_batch: Callable[[torch.Tensor], torch.Tensor],
     """The step-2..4 loop at one resolution until a stall or ``max_iters``
     steps.  Returns the final state and a (max_iters,) trace of parent
     values (padded with the final value after the stall point)."""
-    def step(bits, val, it):
-        nxt = dgo_iteration(f_batch, enc, bits, val)
-        return nxt.parent_bits, nxt.parent_val, nxt.improved
-
     bits, val, vals, iters = _predicated_run(
-        step, parent_bits, parent_val.to(torch.float32), max_iters)
+        _iteration_step(f_batch, enc, parent_bits.device),
+        parent_bits.to(torch.int8), parent_val.to(torch.float32), max_iters)
     n = int(iters)
     # a stalled run's last step kept the parent: its value did not fall
     improved = (vals[n] < vals[n - 1] if n
@@ -127,16 +127,11 @@ def dgo_resolution_step(f_batch: Callable[[torch.Tensor], torch.Tensor],
 # ---------------------------------------------------------------------------
 
 class EngineState(NamedTuple):
-    """What the fused engine ends with (the reference's loop carry at its
-    exit)."""
+    """What the fused engine ends with: the parts of the reference's loop
+    carry that its result reads."""
 
-    res_idx: int             # n_res: every resolution escalated past
-    bits: torch.Tensor       # (n_max,) int8 — last parent (live prefix)
-    val: torch.Tensor        # () f32 — last parent value (re-encoded)
     best_val: torch.Tensor   # () f32 — best value found
     best_x: torch.Tensor     # (n_vars,) f32 — best point found
-    improved: bool           # True: the engine ends on an escalation
-    it_in_res: int           # 0: the engine ends on an escalation
     iters: int               # total steps
     evals: int               # total function evaluations
     trace: np.ndarray        # (t_max,) f32 — best value after each step
@@ -205,13 +200,9 @@ def _engine_loop(objective, cfg: DGOConfig, *, device=None,
                 best = v if v < best else best
                 trace[i] = best
                 i += 1
-        val, bits = run.starts[-1]
         return EngineState(
-            res_idx=tables.n_res,
-            bits=torch.nn.functional.pad(bits, (0, st.n_max - bits.shape[0])),
-            val=val, best_val=best_val,
-            best_x=tables.decode(best_bits, best_r), improved=True,
-            it_in_res=0, iters=i,
+            best_val=best_val, best_x=tables.decode(best_bits, best_r),
+            iters=i,
             evals=sum(n * e.population
                       for n, e in zip(run.live, tables.encodings)),
             trace=trace)

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.cache import get_cache
 from repro_torch.core.encoding import (
-    Encoding, _f32, binary_to_gray, decode_levels, gray_to_binary)
+    Encoding, binary_to_gray, decode, encode, gray_to_binary)
 
 # host tables and their per-device tensor copies (bounded, instrumented)
 _TABLES = get_cache("population.tables", maxsize=128)
@@ -162,24 +162,24 @@ class ResolutionEncoding(Encoding):
 
 
 class ScheduleTables(NamedTuple):
-    """The whole resolution schedule as stacked device tables
-    (``repro.core.population.ScheduleTables``).
+    """The whole resolution schedule (``repro.core.population.
+    ScheduleTables``): one :class:`ResolutionEncoding` a resolution and the
+    small per-resolution constants, stacked along a leading schedule axis.
 
-    Every per-resolution constant (decode weights, encode layout, live
-    population size, lattice step) is padded to the width of the FINEST
-    resolution and stacked along a leading schedule axis.  At resolution
-    ``res_bits[r]`` the live string is the first ``n_vars * res_bits[r]``
-    positions of an ``n_max``-wide bit buffer (position ``i`` belongs to
-    variable ``i // res_bits[r]``, MSB-first); the rest is zero.
+    At resolution ``res_bits[r]`` the live string is the first
+    ``n_vars * res_bits[r]`` positions of an ``n_max``-wide bit buffer
+    (position ``i`` belongs to variable ``i // res_bits[r]``, MSB-first);
+    the rest is zero.
 
     ``r`` is a host int here: the port's engines keep the resolution index
-    on the host, and each resolution's step is bound at its own width
-    (``encodings[r]``).  The stacked (R, p_max, n_max) XOR patterns are
-    built only on request (:meth:`stacked_patterns`): at the
-    remote-sensing MLP's 4 -> 16 bit schedule they take 1.66 GB, and no
-    engine reads them.  ``decode`` takes the levels from an exact matmul
-    and applies the affine map as two separately rounded operations
-    (no FMA)."""
+    on the host and bind each resolution's step at its own width, so
+    ``decode`` and ``encode`` are those of :mod:`~repro_torch.core.encoding`
+    at ``encodings[r]`` (FMA-free, with the table's float32 step).  The
+    reference stacks its decode weights, encode layout and XOR patterns
+    because its ``r`` is traced; here they are built only on request, for
+    the parity tests (:meth:`stacked_layout`, :meth:`stacked_patterns`):
+    at the remote-sensing MLP's 4 -> 16 bit schedule the weights alone
+    take 207 MB and the patterns 1.66 GB."""
 
     n_vars: int
     lo: float
@@ -187,10 +187,6 @@ class ScheduleTables(NamedTuple):
     res_bits: tuple
     n_max: int               # bit-buffer width: n_vars * max(res_bits)
     p_max: int               # stacked population axis: 2 * n_max - 1
-    wmat: torch.Tensor       # (R, n_max, n_vars) f32 MSB-first bit weights
-    var: torch.Tensor        # (R, n_max) int64 variable id per position
-    shift: torch.Tensor      # (R, n_max) int64 bit shift per position
-    active: torch.Tensor     # (R, n_max) bool live-prefix mask
     pop: torch.Tensor        # (R,) int64 live population 2*n_vars*bits - 1
     scale: torch.Tensor      # (R,) f32 lattice step (hi - lo) / max_level
     max_level: torch.Tensor  # (R,) f32 2^bits - 1
@@ -203,20 +199,14 @@ class ScheduleTables(NamedTuple):
     def decode(self, bits: torch.Tensor, r: int) -> torch.Tensor:
         """(..., n_max) bit buffer (or its live prefix) -> (..., n_vars)
         floats at resolution ``r``."""
-        n = self.encodings[r].n_bits
-        levels = bits[..., :n].to(torch.float32) @ self.wmat[r, :n]
-        return decode_levels(levels, self.encodings[r])
+        enc = self.encodings[r]
+        return decode(bits[..., :enc.n_bits], enc)
 
     def encode(self, x: torch.Tensor, r: int) -> torch.Tensor:
         """(..., n_vars) floats -> (..., n_max) int8 bit buffer at
         resolution ``r`` (zero past the live prefix)."""
-        x = torch.as_tensor(x, dtype=torch.float32)
-        ml = self.max_level[r]
-        lv = torch.round((x - _f32(self.lo, x)) / _f32(self.hi - self.lo, x)
-                         * ml)
-        lv = torch.minimum(torch.clamp(lv, min=0.0), ml).to(torch.int64)
-        b = (lv.index_select(-1, self.var[r]) >> self.shift[r]) & 1
-        return torch.where(self.active[r], b, 0).to(torch.int8)
+        bits = encode(x, self.encodings[r])
+        return torch.nn.functional.pad(bits, (0, self.n_max - bits.shape[-1]))
 
     def reencode(self, bits: torch.Tensor, r: int,
                  nxt: int) -> torch.Tensor:
@@ -245,6 +235,26 @@ class ScheduleTables(NamedTuple):
         return torch.stack([self.children(zero, ids, r)
                             for r in range(self.n_res)])
 
+    def stacked_layout(self) -> dict:
+        """The reference's stacked decode weights and encode layout, as
+        numpy arrays: ``wmat`` (R, n_max, n_vars) f32 MSB-first bit
+        weights, ``var`` and ``shift`` (R, n_max) int64 variable id and bit
+        shift per position, ``active`` (R, n_max) bool live prefix."""
+        n_max, n_vars = self.n_max, self.n_vars
+        out = {"wmat": np.zeros((self.n_res, n_max, n_vars), np.float32),
+               "var": np.zeros((self.n_res, n_max), np.int64),
+               "shift": np.zeros((self.n_res, n_max), np.int64),
+               "active": np.zeros((self.n_res, n_max), bool)}
+        i = np.arange(n_max)
+        for r, b in enumerate(self.res_bits):
+            weights = 2.0 ** np.arange(b - 1, -1, -1)
+            for v in range(n_vars):
+                out["wmat"][r, v * b: (v + 1) * b, v] = weights
+            out["var"][r] = np.minimum(i // b, n_vars - 1)
+            out["shift"][r] = np.clip(b - 1 - i % b, 0, 31)
+            out["active"][r] = i < n_vars * b
+        return out
+
 
 def schedule_tables(n_vars: int, res_bits: tuple, lo: float, hi: float,
                     device="cpu") -> ScheduleTables:
@@ -264,24 +274,10 @@ def _build_schedule_tables(n_vars: int, res_bits: tuple, lo: float,
     if not res_bits:
         raise ValueError("res_bits must name at least one resolution")
     n_max = n_vars * max(res_bits)
-    n_res = len(res_bits)
-    wmat = np.zeros((n_res, n_max, n_vars), np.float32)
-    var = np.zeros((n_res, n_max), np.int64)
-    shift = np.zeros((n_res, n_max), np.int64)
-    active = np.zeros((n_res, n_max), bool)
-    pop = np.zeros((n_res,), np.int64)
-    scale = np.zeros((n_res,), np.float32)
-    max_level = np.zeros((n_res,), np.float32)
-    i = np.arange(n_max)
-    for r, b in enumerate(res_bits):
-        weights = 2.0 ** np.arange(b - 1, -1, -1)
-        for v in range(n_vars):
-            wmat[r, v * b: (v + 1) * b, v] = weights
-        var[r] = np.minimum(i // b, n_vars - 1)
-        shift[r] = np.clip(b - 1 - i % b, 0, 31)
-        active[r] = i < n_vars * b
-        pop[r] = 2 * n_vars * b - 1
-        max_level[r] = 2.0**b - 1.0
+    bits = np.asarray(res_bits, np.int64)
+    max_level = (2.0**bits - 1.0).astype(np.float32)
+    scale = np.zeros((len(res_bits),), np.float32)
+    for r in range(len(res_bits)):
         # a float32 division, as numpy rounds the reference's table
         scale[r] = (hi - lo) / max_level[r]
     encodings = tuple(ResolutionEncoding(n_vars, b, lo, hi,
@@ -293,6 +289,5 @@ def _build_schedule_tables(n_vars: int, res_bits: tuple, lo: float,
 
     return ScheduleTables(
         n_vars=n_vars, lo=lo, hi=hi, res_bits=res_bits, n_max=n_max,
-        p_max=2 * n_max - 1, wmat=on(wmat), var=on(var), shift=on(shift),
-        active=on(active), pop=on(pop), scale=on(scale),
+        p_max=2 * n_max - 1, pop=on(2 * n_vars * bits - 1), scale=on(scale),
         max_level=on(max_level), encodings=encodings)

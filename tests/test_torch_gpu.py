@@ -7,6 +7,9 @@ Run them on the card with
 ``PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports JAX, which a machine that
 only runs the port need not have; this file imports none of it)."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,10 @@ from repro_torch.kernels.graycode import ops as graycode
 from repro_torch.kernels.popmin import ops as popmin
 from repro_torch.kernels.popmin.ref import popmin_ref
 from repro_torch.kernels.popstep import ops
+
+# the near-tie rule of the schedule phase (host replay of both steps)
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -165,8 +172,9 @@ def _counted(fn):
 def test_fused_schedule_goes_through_the_kernel(cuda, name, kw, max_bits):
     """One popstep launch a step at every resolution, no fold launch, and
     at most ``STALL_CHECK_EVERY`` predicated launches a resolution; the
-    trace of the plain tensor step on the card, under the near-tie
-    rule."""
+    run through the plain tensor step on the card the same step for step
+    up to a parting step that is a near-tie
+    (``chip_smoke.schedule_runs_match``: a host replay of both steps)."""
     prob = Problem.get(name, **kw)
     enc = prob.encoding
     x0 = np.random.default_rng(1).uniform(enc.lo, enc.hi,
@@ -179,23 +187,9 @@ def test_fused_schedule_goes_through_the_kernel(cuda, name, kw, max_bits):
     cfg = Fused(max_bits=max_bits)._config(prob, 16, max_bits, 2)
     plain = dgo._fused_result(prob.objective, cfg, x0=x0, device=cuda,
                               inner="fused")
-    assert _same_plateaus(res.trace, plain.trace)
-
-
-def _same_plateaus(a, b):
-    """The near-tie rule of ``chip_smoke.schedule_runs_match``: the values
-    two runs move through (steps within the bar of the last kept one
-    dropped) agree one for one."""
-    def plateaus(h):
-        out = [h[0]]
-        for v in h[1:]:
-            if not np.isclose(v, out[-1], rtol=TOL, atol=TOL):
-                out.append(v)
-        return np.asarray(out)
-
-    pa, pb = plateaus(a), plateaus(b)
-    return len(pa) == len(pb) and bool(np.isclose(pa, pb, rtol=TOL,
-                                                  atol=TOL).all())
+    ok, note = chip_smoke.schedule_runs_match(name, prob, cfg, x0, res.trace,
+                                              plain.trace, cuda)
+    assert ok, note
 
 
 def test_folded_distributed_equals_host_chaining_on_card(cuda):
@@ -241,6 +235,32 @@ def _engine_step(cuda, obj, enc, seed):
     parent = torch.as_tensor(np.random.default_rng(seed).integers(
         0, 2, enc.n_bits).astype(np.int8), device=cuda)
     return parent, ids.clamp(max=plan.pop - 1), valid, plan.block
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_schedule_steps_match_plain_version(cuda, bits):
+    """The remote-sensing MLP's schedule steps from a random parent (values
+    of order one): Fused's one run and the folded engine's blocks planned
+    at the 16-bit p_max, winner and every child's value."""
+    obj = objectives.get("remote_sensing")
+    enc = obj.encoding.with_bits(bits)
+    parent = torch.as_tensor(np.random.default_rng(bits).integers(
+        0, 2, enc.n_bits).astype(np.int8), device=cuda)
+    atol = _atol("remote_sensing", enc)
+    for _, ids, valid, vb in chip_smoke._geometries(
+            enc, cuda, (2 * enc.n_vars * 16 - 1,))[1:]:
+        step = ops.prepare_step_ids(obj, ids, enc, valid=valid,
+                                    virtual_block=vb)
+        kv, ki = step(parent)
+        got = step.values
+        want = ops.child_values_plain(obj, parent, ids, enc, valid)
+        pv, pi = ops.population_step_ids_plain(obj, parent, ids, enc,
+                                               valid=valid, virtual_block=vb)
+        assert torch.isclose(got, want, rtol=TOL, atol=atol).all()
+        assert np.isclose(float(kv), float(pv), rtol=TOL, atol=atol)
+        if int(ki) != int(pi):            # only a near-tie may differ
+            assert np.isclose(float(want[int(ki)]), float(want[int(pi)]),
+                              rtol=TOL, atol=atol)
 
 
 @pytest.mark.parametrize("name,bits", [("remote_sensing", 4)]

@@ -36,8 +36,11 @@ def test_schedule_tables_match_bitwise(n_vars, res_bits):
     assert (tt.n_max, tt.p_max, tt.n_res) == (jt.n_max, jt.p_max, jt.n_res)
     assert np.array_equal(tt.stacked_patterns().numpy(),
                           np.asarray(jt.patterns))
-    for name in ("wmat", "var", "shift", "active", "pop", "scale",
-                 "max_level"):
+    layout = tt.stacked_layout()
+    for name in ("wmat", "var", "shift", "active"):
+        assert np.array_equal(layout[name], np.asarray(getattr(jt, name))), \
+            name
+    for name in ("pop", "scale", "max_level"):
         assert np.array_equal(getattr(tt, name).numpy(),
                               np.asarray(getattr(jt, name))), name
     for r, enc in enumerate(tt.encodings):
