@@ -109,9 +109,40 @@ Phases (any failure exits non-zero; none is caught):
              through the chunked plain attention, argmax equal but at
              near-ties.
 
+8. dgo-serve — the batched engine, meshes and serving: (a) one popstep
+             launch for R parents (``prepare_step_ids(..., restarts=R)``)
+             vs its plain version (the one-parent plain step on each live
+             parent) on the same CUDA tensors — remote_sensing at R = 1, 3
+             and 8 with parents not live, at the folded schedule's 16-bit
+             rows (21,759 children) at R = 8, rastrigin n=9 at 16 bits on
+             8 shards with two dead at every rotation phase, and the XOR
+             net with a NaN-making sample on shards of one block (the
+             step's value NaN) and of several (the NaN block dropped):
+             winner ids equal (or a near-tie), values and every child's
+             value within ``RTOL``/``ATOL``, each parent's result bitwise
+             a one-parent launch's; each shape timed beside R one-parent
+             launches and R times its bound (``by_restarts``); (b)
+             ``solve_many`` of 8 remote-sensing requests with mixed caps
+             and seeds in a wave of 8 and a partial second wave, the counts
+             set to 0 around it: one launch per batched step, no fold
+             launch, and every slot bit for bit its per-request
+             ``solve(..., Batched(restarts=1))``; one wave under the
+             profiler (idle share, the batched step's device time); (c)
+             the folded batched wave (4 -> 8 bits, R = 8) through the
+             kernel and through the plain tensor step, each slot held
+             against a host replay of both steps (the same children up to
+             a parting step, which must be a near-tie: ``judge_parting``);
+             (d) ``Distributed(mesh=8)`` with two dead shards on both
+             drivers (histories equal) and the host driver with a
+             ``FailureInjector``, each descending; (e)
+             ``python -m repro_torch.launch.serve --dgo`` (its ``main``, in
+             this process) on remote_sensing and rastrigin n=9, waves of
+             8, pipelined and then ``--no-pipeline``: every request
+             completes, the same best_f per request.
+
 The last lines are the card's name and power limit, a JSON line with
 every kernel's measurements (``popstep`` — its launches summed over
-phases 4 and 4b, each solve's count under ``by_path`` —, ``popstep_fold``
+phases 4, 4b and 8, each path's count under ``by_path`` —, ``popstep_fold``
 — merged into
 ``popstep``'s launch, timed through the check entry —, ``graycode``,
 ``fixedpoint``, ``popmin``, ``popmin_fold`` — merged into ``popmin``'s
@@ -174,16 +205,21 @@ def time_ms(fn, reps: int, dev) -> float:
     return start.elapsed_time(end) / reps
 
 
+TAIL_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel: profiled's tail
+TAIL_LAUNCHES = 3
+
+
 def _device_activity(prof, name: str | None = None) -> tuple[float, int]:
     """(microseconds, count) of the CUDA activities a profiler recorded
     (kernels and copies; only kernels whose name contains ``name``, when
-    given)."""
+    given), :func:`profiled`'s tail kernels left out."""
     from torch.autograd import DeviceType
 
     times = [getattr(e, "self_device_time_total", 0)
              for e in prof.events()
              if e.device_type == DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)
+             and TAIL_KERNEL not in e.name
              and (name is None or name in e.name)]
     return sum(times), len(times)
 
@@ -203,7 +239,11 @@ def profiled(fn, name: str | None = None, want: int | None = None, *,
     ``PROFILE_TRIES`` sessions, each retry printed, when it saw no device
     activity (of kernels named ``name``, when given), other than ``want``
     of them, or a count that ``calls`` calls of ``fn``, each making the
-    same launches, cannot give."""
+    same launches, cannot give.  On some machines every session loses its
+    last record (one of 20 launches, every session of a run): each
+    session ends with ``TAIL_LAUNCHES`` tiny ``torch.cuda._sleep``
+    kernels after the timed work, which :func:`_device_activity` leaves
+    out, so that such a loss takes one of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -214,6 +254,9 @@ def profiled(fn, name: str | None = None, want: int | None = None, *,
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            for _ in range(TAIL_LAUNCHES):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         us, n = _device_activity(prof, name)
         if us > 0 and n % calls == 0 and want in (None, n):
             break
@@ -231,8 +274,12 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     ``torch.profiler`` records over ``reps`` calls, or, when ``name`` is
     given, the mean of the recorded launches of kernels whose name
     contains it (one a call; see :func:`profiled` for dropped records).
-    Fails when the profiler sees no device time: no other clock stands in
-    for it.  (Off the card, for a rehearsal, the host clock.)"""
+    When every session of :func:`profiled` recorded no device time (on
+    some machines the profiler loses whole sessions' records, e.g. every
+    launch of a run of three 85 ms kernels), the time is taken with CUDA
+    events around the calls instead (:func:`time_ms`; host work between
+    launches included when the host is the slower side), and a line says
+    so.  (Off the card, for a rehearsal, the host clock.)"""
     import torch
 
     if dev.type != "cuda":
@@ -242,9 +289,13 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     prof, _ = profiled(lambda: [fn() for _ in range(reps)], name,
                        reps if name else None, calls=reps)
     us, n = _device_activity(prof, name)
-    check(us > 0, f"the profiler recorded no device time"
-                  f"{f' for {name!r}' if name else ''}")
-    return us / 1e3 / (reps if name is None else n)
+    if us > 0:
+        return us / 1e3 / (reps if name is None else n)
+    ms = time_ms(fn, reps, dev)
+    print(f"[time] the profiler recorded no device time"
+          f"{f' for {name!r}' if name else ''} in {PROFILE_TRIES} "
+          f"sessions: {ms:.4f} ms a call by CUDA events instead")
+    return ms
 
 
 def long_sum_atol(name: str, enc) -> tuple[float, str]:
@@ -768,25 +819,37 @@ def _counted_solve(problem, strategy, x0, max_iters, dev):
     (result, wall s, (launches, fold launches, steps))."""
     from repro_torch.kernels.popstep import ops
 
-    bind = ops.prepare_step_ids
-    steps = [0]
-
-    def counting_bind(*args, **kwargs):
-        step = bind(*args, **kwargs)
-
-        def counted(parent_bits):
-            steps[0] += 1
-            return step(parent_bits)
-        return counted
-
-    ops.prepare_step_ids = counting_bind
+    steps, undo = _count_steps()
     try:
         ops.launches = ops.fold_launches = 0
         res, wall = _solve_timed(problem, strategy, x0, max_iters, dev)
         counts = (ops.launches, ops.fold_launches, steps[0])
     finally:
-        ops.prepare_step_ids = bind
+        undo()
     return res, wall, counts
+
+
+def _count_steps():
+    """Wrap ``ops.prepare_step_ids`` so that every call of a step it binds
+    is counted: (the count, a list of one int; undo)."""
+    from repro_torch.kernels.popstep import ops
+
+    bind = ops.prepare_step_ids
+    calls = [0]
+
+    def counting_bind(*args, **kwargs):
+        step = bind(*args, **kwargs)
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return step(*a, **k)
+        return counted
+
+    ops.prepare_step_ids = counting_bind
+
+    def undo():
+        ops.prepare_step_ids = bind
+    return calls, undo
 
 
 def phase_main_path(dev, rs_ms: float, rast_ms: float) -> dict:
@@ -2097,6 +2160,578 @@ def bf16_prefill(params, arch, batch, cache_len) -> int:
     return n_launch
 
 
+# ---------------------------------------------------------------------------
+# phase 8: dgo-serve — the batched engine, meshes and serving
+# ---------------------------------------------------------------------------
+
+DGO_PROBLEM = ("remote_sensing", {})      # full width: 680 vars, 5,439
+DGO_SECOND = ("rastrigin", {"n": 9})      # children at 4 bits
+DGO_WAVE = 8                  # the serving wave: R = 8 restarts
+DGO_ITERS = 64
+DGO_MESH = 8                  # virtual shards of the mesh checks
+DGO_DEAD = (1, 4)             # the two dead shards
+DGO_FOLDED_BITS = 8           # the folded batched wave: 4 -> 8 bits
+DGO_SLOT_CAPS = (64, 24, 40, 16)          # mixed caps of the slot check
+DGO_EXTRA = 3                 # requests of the partial second wave
+DGO_INJECT = (0.05, 3)        # FailureInjector(rate, seed) on the host
+DGO_SERVE_ARGS = ("--dgo", "--problems", "remote_sensing,rastrigin:9",
+                  "--restarts", "8", "--waves", "2", "--max-iters", "64",
+                  "--max-in-flight", "2")
+
+
+def _alive_of(n_shards, dead):
+    return tuple(s not in dead for s in range(n_shards))
+
+
+def restart_inputs(obj, enc, n_shards, dead, phase, vb, dev, p_max=None):
+    """The rows an engine binds for one step of ``n_shards`` shards (the
+    ones in ``dead`` masked) at rotation ``phase``, virtual blocks of at
+    most ``vb``; with ``p_max`` the folded schedule's rows (shards planned
+    at the finest resolution): (ids, valid, block)."""
+    from repro_torch.core.distributed import _shard_plan, _shard_rows
+
+    plan = _shard_plan(p_max or enc.population, n_shards, vb)
+    ids, valid = _shard_rows(enc, plan, _alive_of(n_shards, dead), phase,
+                             p_max is not None, dev)
+    return ids, valid, plan.block
+
+
+def _same_pick(kv, ki, pv, pi, atol) -> bool:
+    """(value, id) pairs agree: both NaN with the same id, or values
+    within the bar and the same id."""
+    if np.isnan(kv) or np.isnan(pv):
+        return bool(np.isnan(kv) and np.isnan(pv)) and ki == pi
+    return ki == pi and bool(np.isclose(kv, pv, rtol=RTOL, atol=atol))
+
+
+def check_restarts(label, name, obj, enc, parents, live, dev, *,
+                   n_shards=1, dead=(), phase=0, vb=256, p_max=None,
+                   timed=False) -> dict:
+    """One R-restart popstep launch vs its plain version (the one-parent
+    plain step on each live parent) on the same CUDA tensors: each live
+    parent's winner id, its value within the bar and every child's value;
+    each live parent's result also bitwise equal to a one-parent launch
+    on it.  With ``timed``, every parent live: the launch's device time
+    beside R one-parent launches and beside R times the work bound."""
+    import torch
+
+    from repro_torch.kernels.popstep import ops
+
+    ids, valid, block = restart_inputs(obj, enc, n_shards, dead, phase, vb,
+                                       dev, p_max)
+    r = parents.shape[0]
+    kw = dict(valid=valid, virtual_block=block, n_shards=n_shards)
+    step = ops.prepare_step_ids(obj, ids, enc, restarts=r, **kw)
+    live_t = torch.as_tensor(np.asarray(live, bool), device=dev)
+    kv, ki = step(parents, live_t)
+    kvals = (step.values if dev.type == "cuda" else torch.stack(
+        [ops.child_values(obj, p, ids, enc, valid) for p in parents]))
+    pv, pi = ops.population_steps_plain(obj, parents, ids, enc, live=live_t,
+                                        **kw)
+    one = ops.prepare_step_ids(obj, ids, enc, **kw)
+    atol, _ = long_sum_atol(name, enc)
+    kv, ki, pv, pi = (t.cpu().numpy() for t in (kv, ki, pv, pi))
+    err, n_nan = 0.0, 0
+    for s in np.flatnonzero(np.asarray(live, bool)):
+        vals = ops.child_values_plain(obj, parents[s], ids, enc, valid)
+        k_s = kvals[s]
+        same_nan = torch.equal(torch.isnan(k_s), torch.isnan(vals))
+        fin = torch.isfinite(vals)
+        close = bool(torch.isclose(k_s[fin], vals[fin], rtol=RTOL,
+                                   atol=atol).all())
+        check(same_nan and close and torch.equal(torch.isinf(k_s),
+                                                 torch.isinf(vals)),
+              f"{label}: parent {s}: a child's value differs from the "
+              f"plain version's beyond the bar (atol {atol:.3g})")
+        if bool(fin.any()):
+            err = max(err, float((k_s[fin].double()
+                                  - vals[fin].double()).abs().max()))
+        n_nan += int(torch.isnan(vals).sum())
+        if not _same_pick(kv[s], ki[s], pv[s], pi[s], atol):
+            # a near-tie: both winners within the bar of each other
+            a, b = float(vals[int(ki[s])]), float(vals[int(pi[s])])
+            check(bool(np.isclose(a, b, rtol=RTOL, atol=atol)),
+                  f"{label}: parent {s}: kernel ({kv[s]!r}, {ki[s]}) vs "
+                  f"plain ({pv[s]!r}, {pi[s]}) is not a near-tie")
+        v1, i1 = one(parents[s])
+        same = (int(i1) == int(ki[s]) and np.float32(float(v1)).tobytes()
+                == np.float32(kv[s]).tobytes())
+        check(same, f"{label}: parent {s}: the R-restart launch gave "
+                    f"({kv[s]!r}, {ki[s]}), a one-parent launch "
+                    f"({float(v1)!r}, {int(i1)})")
+    n_live = int(np.asarray(live, bool).sum())
+    print(f"[dgo] {label:<40} R {r} live {n_live} shards {n_shards} dead "
+          f"{list(dead)} phase {phase}: {ids.shape[0]} rows a parent, "
+          f"winners == plain, == one-parent launches bitwise; max |err| "
+          f"{err:.3g}" + (f"; {n_nan} NaN children" if n_nan else ""))
+    out = {"max_abs_err": err}
+    if timed:
+        every = torch.ones(r, dtype=torch.bool, device=dev)
+        k_ms = device_ms(lambda: step(parents, every), 20, dev,
+                         name="popstep_kernel")
+        s_ms = device_ms(lambda: one(parents[0]), 20, dev,
+                         name="popstep_kernel")
+        p_ms = device_ms(lambda: ops.population_steps_plain(
+            obj, parents, ids, enc, **kw), 3, dev)
+        _, (b_ms, b_by) = popstep_work_bound(name, obj, enc, ids, valid,
+                                             block)
+        out.update(ms=k_ms, one_ms=s_ms, plain_ms=p_ms, bound_ms=b_ms * r,
+                   bound_by=b_by)
+        print(f"[time] popstep R={r} {label}: {k_ms:.4f} ms a launch "
+              f"({k_ms / r:.4f} a parent) vs {r} one-parent launches "
+              f"{s_ms * r:.4f} ms ({s_ms:.4f} each); bound {b_ms * r:.4f} "
+              f"ms ({b_by}, {r} x {b_ms:.4f}); plain {p_ms:.4f} ms")
+    return out
+
+
+def _xor_with_nan_sample():
+    """The registry's XOR net with sample 0 moved to (+inf, -inf): a
+    hidden unit's input is inf - inf (NaN) where its two weights on that
+    sample share a sign, +-inf (tanh +-1) where they do not — so a child
+    that flips the sign of one of those weights is NaN, and the others
+    are finite."""
+    from repro_torch.core import objectives
+
+    x = objectives.XOR_X.copy()
+    x[0] = (np.inf, -np.inf)
+    return objectives._xor(x, objectives.XOR_Y)
+
+
+def phase_restart_kernel(dev) -> dict:
+    """8a: the R-restart popstep launch against its plain version at the
+    serving shapes; returns its times and errors."""
+    import torch
+
+    from repro_torch.core import objectives
+    from repro_torch.core.encoding import encode
+
+    rng = np.random.default_rng(8)
+    name, kw = DGO_PROBLEM
+    obj = objectives.get(name, **kw)
+    enc = obj.encoding
+    times, err = {}, 0.0
+    for r, live in ((1, [True]), (3, [True, False, True]),
+                    (DGO_WAVE, [True] * 5 + [False, True, False])):
+        par = torch.as_tensor(rng.integers(0, 2, (r, enc.n_bits)).astype(
+            np.int8), device=dev)
+        res = check_restarts(f"{name} {enc.bits} bits", name, obj, enc, par,
+                             live, dev)
+        err = max(err, res["max_abs_err"])
+        res = check_restarts(f"{name} {enc.bits} bits (all live)", name, obj,
+                             enc, par, [True] * r, dev, timed=True)
+        times[f"{name}_{enc.bits}bit_R{r}"] = res
+        err = max(err, res["max_abs_err"])
+    # the folded schedule's finest resolution: 21,759 children at 16 bits
+    enc16 = enc.with_bits(16)
+    par = torch.as_tensor(rng.integers(0, 2, (DGO_WAVE, enc16.n_bits))
+                          .astype(np.int8), device=dev)
+    res = check_restarts(f"{name} 16 bits (folded rows)", name, obj, enc16,
+                         par, [True] * DGO_WAVE, dev,
+                         p_max=enc16.population, timed=True)
+    times[f"{name}_16bit_R{DGO_WAVE}"] = res
+    err = max(err, res["max_abs_err"])
+    # rastrigin n=9, 16 bits, 8 shards of one block, two dead: every phase
+    name2, kw2 = DGO_SECOND
+    obj2 = objectives.get(name2, **kw2)
+    enc2 = obj2.encoding.with_bits(16)
+    par = torch.as_tensor(rng.integers(0, 2, (DGO_WAVE, enc2.n_bits))
+                          .astype(np.int8), device=dev)
+    for phase in range(DGO_MESH):
+        res = check_restarts(f"{name2} {kw2} 16 bits", name2, obj2, enc2,
+                             par, [True] * DGO_WAVE, dev, n_shards=DGO_MESH,
+                             dead=DGO_DEAD, phase=phase,
+                             timed=phase == 0)
+        err = max(err, res["max_abs_err"])
+        if phase == 0:
+            times[f"{name2}_16bit_R{DGO_WAVE}_mesh{DGO_MESH}"] = res
+    # a NaN child: shards of one block stall on it, shards of several
+    # blocks drop its block
+    xor = _xor_with_nan_sample()
+    xenc = xor.encoding
+    safe = torch.as_tensor(np.asarray([4, 4, -4, -4, 0.1, 0.1, 1, 1],
+                                      np.float32), device=dev)
+    par = torch.stack([encode(safe, xenc)] * 2 + [torch.as_tensor(
+        rng.integers(0, 2, xenc.n_bits).astype(np.int8), device=dev)])
+    for shards, vb in ((DGO_MESH, 256), (2, xenc.population // 4)):
+        res = check_restarts(f"xor, a NaN sample, vb {vb}", "xor", xor,
+                             xenc, par, [True, True, True], dev,
+                             n_shards=shards, vb=vb)
+        err = max(err, res["max_abs_err"])
+    ids, valid, block = restart_inputs(xor, xenc, DGO_MESH, (), 0, 256, dev)
+    from repro_torch.kernels.popstep import ops
+    vals = ops.child_values_plain(xor, par[0], ids, xenc, valid)
+    check(bool(torch.isnan(vals).any()) and bool(torch.isfinite(vals).any()),
+          "the NaN-sample XOR parent has no NaN child, or no finite one")
+    v, i = ops.prepare_step_ids(xor, ids, xenc, valid=valid,
+                                virtual_block=block,
+                                n_shards=DGO_MESH)(par[0])
+    check(bool(torch.isnan(v)) and int(i) == xenc.population,
+          f"one-block shards with a NaN child: ({float(v)}, {int(i)}), "
+          f"want (nan, {xenc.population})")
+    ids2, valid2, block2 = restart_inputs(xor, xenc, 2, (), 0,
+                                          xenc.population // 4, dev)
+    v2, _ = ops.prepare_step_ids(xor, ids2, xenc, valid=valid2,
+                                 virtual_block=block2, n_shards=2)(par[0])
+    check(bool(torch.isfinite(v2)),
+          f"shards of several blocks did not drop the NaN block: {float(v2)}")
+    print(f"[dgo] xor, a NaN sample: one-block shards -> (nan, "
+          f"{xenc.population}); two-block shards -> {float(v2):.7g}")
+    return {"by_restarts": times, "max_abs_err": err}
+
+
+def _counted(fn):
+    """Run ``fn`` with the engine cache cleared (its steps are bound
+    anew), both popstep counts set to 0 and every bound-step call
+    counted: (result, wall s, (launches, fold launches, step calls))."""
+    import torch
+
+    from repro_torch.core import cache
+    from repro_torch.kernels.popstep import ops
+
+    cache.get_cache("distributed.engine").clear()
+    calls, undo = _count_steps()
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        ops.launches = ops.fold_launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (ops.launches, ops.fold_launches, calls[0])
+    finally:
+        undo()
+    return out, wall, counts
+
+
+def _bitwise(a, b) -> bool:
+    return (np.float32(float(a.best_f)).tobytes()
+            == np.float32(float(b.best_f)).tobytes()
+            and np.array_equal(np.asarray(a.best_x.cpu()).view(np.int32),
+                               np.asarray(b.best_x.cpu()).view(np.int32))
+            and a.iterations == b.iterations
+            and np.array_equal(np.asarray(a.trace, np.float32).view(np.int32),
+                               np.asarray(b.trace, np.float32).view(np.int32)))
+
+
+def phase_dgo_slots(dev) -> dict:
+    """8b: solve_many of a full wave and a partial one; each slot equal
+    bit for bit to its per-request Batched(restarts=1) solve; one launch
+    per batched step."""
+    from repro_torch.core.solver import Batched, Problem, SolveRequest
+    from repro_torch.core.solver import solve, solve_many
+
+    name, kw = DGO_PROBLEM
+    prob = Problem.get(name, **kw)
+    reqs = [SolveRequest(prob, seed=100 + i,
+                         max_iters=DGO_SLOT_CAPS[i % len(DGO_SLOT_CAPS)])
+            for i in range(DGO_WAVE + DGO_EXTRA)]
+    device = None if dev.type == "cuda" else dev
+    outs, wall, (n, n_fold, n_calls) = _counted(
+        lambda: solve_many(reqs, pad_to=DGO_WAVE, device=device))
+    waves = [outs[:DGO_WAVE], outs[DGO_WAVE:]]
+    steps = [max(o.iterations for o in w) for w in waves]
+    print(f"[dgo] solve_many {name}: {len(reqs)} requests in waves of "
+          f"{DGO_WAVE} (the second padded), {steps} steps a wave, wall "
+          f"{wall:.4f} s ({wall / len(waves):.4f} s a wave); launches: "
+          f"popstep {n} for {n_calls} batched steps, fold alone {n_fold}")
+    check(n > 0, "the batched waves launched no popstep kernel")
+    check(n == n_calls, f"{n} popstep launches for {n_calls} batched steps")
+    check(n_fold == 0, f"the fold was launched alone {n_fold} times")
+    check(sum(steps) <= n_calls <= sum(steps) + 16 * len(waves),
+          f"{n_calls} batched steps for waves of {steps} steps")
+    for req, out in zip(reqs, outs):
+        one = solve(prob, Batched(restarts=1), seed=req.seed,
+                    max_iters=req.max_iters, device=device)
+        check(_bitwise(out, one),
+              f"slot {out.extras['wave_slot']} (seed {req.seed}, cap "
+              f"{req.max_iters}) differs from its per-request solve: "
+              f"{float(out.best_f)!r}/{out.iterations} vs "
+              f"{float(one.best_f)!r}/{one.iterations}")
+        check(np.isfinite(float(out.best_f)) and out.extras["finite"]
+              and out.trace[-1] < out.trace[0],
+              f"slot {out.extras['wave_slot']} did not descend")
+    print(f"[dgo] solve_many {name}: every slot == its per-request "
+          f"Batched(restarts=1) solve, bit for bit (best_x, best_f, "
+          f"iterations, trace)")
+    return {"counts": (n, n_fold), "wall_per_wave": wall / len(waves),
+            "reqs": reqs}
+
+
+def replay_batched_slot(problem, cfg, x0, cap, dev):
+    """One slot of the folded batched wave replayed on the host with the
+    popstep kernel's step and the plain tensor step (the engine's rows:
+    shards planned at the finest resolution) on the same parent each
+    step, under the engine's rules (a stall or ``cap`` steps escalate; no
+    re-encode after the last resolution): (the kernel's best-so-far trace,
+    the plain one's, the parting step or None), as
+    :func:`replay_schedule`."""
+    import torch
+
+    from repro_torch.core import dgo
+    from repro_torch.core.distributed import (_build_shard_step,
+                                              _parent_vals, _shard_plan)
+    from repro_torch.core.encoding import decode, encode
+
+    obj = problem.objective
+    _, tables = dgo._engine_tables(cfg, dev)
+    plan = _shard_plan(tables.p_max, 1, 256)
+    k_steps = [_build_shard_step(obj, e, plan, "popstep", dev,
+                                 bounded=True)(None)
+               for e in tables.encodings]
+    p_steps = [_build_shard_step(obj, e, plan, "fused", dev,
+                                 bounded=True)(None)
+               for e in tables.encodings]
+    enc0 = cfg.encoding
+    x = torch.as_tensor(np.asarray(x0, np.float32), device=dev)
+    val = _parent_vals(obj, decode(encode(x, enc0), enc0)[None])[0]
+    bits = tables.encode(x, 0)[: tables.encodings[0].n_bits]
+    k_val = p_val = val
+    k_best = p_best = float(val)
+    k_tr, p_tr = [np.float32(k_best)], [np.float32(p_best)]
+    for r in range(tables.n_res):
+        if r > 0:
+            bits = tables.reencode(bits, r - 1, r)[
+                : tables.encodings[r].n_bits]
+            val = _parent_vals(obj, tables.decode(bits, r)[None])[0]
+            k_val = p_val = val
+        for it in range(cap):
+            kb, kv, ki = k_steps[r](bits, k_val, it)
+            pb, pv, pi = p_steps[r](bits, p_val, it)
+            if bool(ki) != bool(pi) or not torch.equal(kb, pb):
+                return k_tr, p_tr, dict(
+                    r=r, step=len(k_tr), bits=bits, k_val=k_val,
+                    p_val=p_val, kernel=(kb, kv, bool(ki)),
+                    plain=(pb, pv, bool(pi)))
+            bits, k_val, p_val = kb, kv, pv
+            k_best = min(k_best, float(kv))
+            p_best = min(p_best, float(pv))
+            k_tr.append(np.float32(k_best))
+            p_tr.append(np.float32(p_best))
+            if not bool(ki):
+                break
+    return k_tr, p_tr, None
+
+
+def phase_dgo_folded(dev) -> dict:
+    """8c: the folded batched wave (4 -> DGO_FOLDED_BITS bits, R = 8)
+    through the kernel and through the plain tensor step on the card,
+    each slot held against the host replay of both steps."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.dgo import DGOConfig
+    from repro_torch.core.solver import Problem, SolveRequest, _request_x0
+
+    name, kw = DGO_PROBLEM
+    prob = Problem.get(name, **kw)
+    enc = prob.encoding
+    cfg = DGOConfig(encoding=enc, max_bits=DGO_FOLDED_BITS, bits_step=2,
+                    max_iters_per_resolution=DGO_ITERS)
+    schedule = tuple(cfg.resolutions())
+    x0s = np.stack([_request_x0(prob, SolveRequest(prob, seed=200 + i))
+                    for i in range(DGO_WAVE)])
+    device = None if dev.type == "cuda" else dev
+    res_k, wall_k, (n, n_fold, n_calls) = _counted(
+        lambda: tdist._run_batched(prob.objective, enc, x0s,
+                                   max_iters=DGO_ITERS, res_bits=schedule,
+                                   device=device))
+    res_p = tdist._run_batched(prob.objective, enc, x0s,
+                               max_iters=DGO_ITERS, res_bits=schedule,
+                               inner="fused", device=dev)
+    label = f"{name} folded {enc.bits}->{DGO_FOLDED_BITS} bits R {DGO_WAVE}"
+    its = np.asarray(res_k.iterations)
+    print(f"[dgo] {label}: {int(its.sum())} slot steps ({its.tolist()}), "
+          f"wall {wall_k:.4f} s; launches: popstep {n} for {n_calls} "
+          f"batched steps, fold alone {n_fold}")
+    check(n > 0 and n == n_calls and n_fold == 0,
+          f"{label}: {n} launches, {n_calls} batched steps, {n_fold} fold "
+          f"launches")
+    parted = 0
+    for s in range(DGO_WAVE):
+        k_tr, p_tr, part = replay_batched_slot(prob, cfg, x0s[s], DGO_ITERS,
+                                               dev)
+        t_k = res_k.trace[s][: int(its[s]) + 1]
+        t_p = res_p.trace[s][: int(np.asarray(res_p.iterations)[s]) + 1]
+        m = len(k_tr)
+        if part is None:
+            check(np.array_equal(t_k, np.asarray(k_tr, np.float32))
+                  and np.array_equal(t_p, np.asarray(p_tr, np.float32)),
+                  f"{label}: slot {s} differs from the host replay")
+            continue
+        parted += 1
+        check(len(t_k) >= m and len(t_p) >= m
+              and np.array_equal(t_k[:m], np.asarray(k_tr, np.float32))
+              and np.array_equal(t_p[:m], np.asarray(p_tr, np.float32)),
+              f"{label}: slot {s} differs from the host replay before its "
+              f"parting step {m}")
+        ok, note = judge_parting(name, prob, cfg, part, dev)
+        print(f"[dgo] {label}: slot {s}: the same children for {m - 1} "
+              f"steps, then a {note}")
+        check(ok, f"{label}: slot {s} parts beyond a near-tie: {note}")
+    print(f"[dgo] {label}: every slot == the host replay of both steps "
+          f"({parted} part at a near-tie); best {float(res_k.values.min()):.7g}"
+          f" (kernel) vs {float(res_p.values.min()):.7g} (plain)")
+    return {"counts": (n, n_fold)}
+
+
+def phase_dgo_mesh(dev) -> dict:
+    """8d: Distributed(mesh=8, two dead shards) on both drivers at full
+    width (the device history == the host's), and the host driver with a
+    FailureInjector; each must descend."""
+    from repro_torch.core.solver import Distributed, Problem
+    from repro_torch.runtime import FailureInjector
+
+    name, kw = DGO_PROBLEM
+    prob = Problem.get(name, **kw)
+    enc = prob.encoding
+    x0 = np.random.default_rng(9).uniform(enc.lo, enc.hi,
+                                          enc.n_vars).astype(np.float32)
+    mask = list(_alive_of(DGO_MESH, DGO_DEAD))
+    counts, hist = {}, {}
+    for label, strat in (
+            ("device", Distributed(mesh=DGO_MESH, quorum_mask=mask)),
+            ("host", Distributed(mesh=DGO_MESH, quorum_mask=mask,
+                                 driver="host")),
+            ("host + injector", Distributed(
+                mesh=DGO_MESH, driver="host",
+                injector=FailureInjector(*DGO_INJECT[:1],
+                                         seed=DGO_INJECT[1])))):
+        res, wall, (n, n_fold, n_calls) = _counted(
+            lambda: _solve_timed(prob, strat, x0, DGO_ITERS, dev)[0])
+        h = res.extras["history"]
+        hist[label] = h
+        print(f"[dgo] {name} mesh {DGO_MESH} {label}"
+              + (f" dead {list(DGO_DEAD)}" if "injector" not in label
+                 else "") + f": {res.iterations} steps, {h[0]:.7g} -> "
+              f"{float(res.best_f):.7g}, wall {wall:.4f} s; launches: "
+              f"popstep {n} for {n_calls} step calls, fold alone {n_fold}")
+        check(n > 0 and n == n_calls and n_fold == 0,
+              f"mesh {label}: {n} launches, {n_calls} step calls, {n_fold} "
+              f"fold launches")
+        check(float(res.best_f) < h[0] and res.extras["finite"],
+              f"mesh {label}: did not descend ({h[0]} -> "
+              f"{float(res.best_f)})")
+        counts[f"dgo-serve: mesh {label}"] = (n, n_fold)
+    check(hist["device"] == hist["host"],
+          "the device driver's history differs from the host driver's")
+    print(f"[dgo] mesh {DGO_MESH}, dead {list(DGO_DEAD)}: the device "
+          f"driver's history == the host driver's ({len(hist['host']) - 1} "
+          f"steps)")
+    return counts
+
+
+def _serve_once(argv, dev):
+    """``launch.serve``'s CLI in this process: (its printed report, the
+    handles, wall s, launches).  Off the card (a rehearsal) the loop runs
+    on ``dev``."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels.popstep import ops
+    from repro_torch.launch import serve
+
+    seen = []
+    loop = serve._run_serving_loop
+
+    def keep(args, problems, rps, device=None):
+        out = loop(args, problems, rps,
+                   None if dev.type == "cuda" else dev)
+        seen.append(out)
+        return out
+
+    buf = io.StringIO()
+    serve._run_serving_loop = keep
+    try:
+        ops.launches = ops.fold_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(list(argv))
+        wall = time.perf_counter() - t0
+        n = (ops.launches, ops.fold_launches)
+    finally:
+        serve._run_serving_loop = loop
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    sched, handles, loop_wall, _ = seen[-1]
+    return report, handles, loop_wall, wall, n, sched
+
+
+def phase_dgo_serve_cli(dev) -> dict:
+    """8e: ``python -m repro_torch.launch.serve --dgo`` in closed loop,
+    pipelined, then with ``--no-pipeline``: every request completes, with
+    the same best_f per request."""
+    from repro_torch.launch import serve
+
+    cli = serve.build_parser().parse_args(list(DGO_SERVE_ARGS))
+    want = cli.restarts * cli.waves
+    out, best = {}, {}
+    for mode, extra in (("pipelined", ()), ("no-pipeline",
+                                            ("--no-pipeline",))):
+        report, handles, loop_wall, wall, n, sched = _serve_once(
+            DGO_SERVE_ARGS + extra, dev)
+        m = sched.metrics()
+        print(f"[dgo] serve --dgo {mode}: {json.dumps(report)}")
+        check(report["completed"] == want and report["failed"] == 0
+              and all(h.done() and h.error is None for h in handles),
+              f"serve --dgo {mode}: {report['completed']} of {want} "
+              f"requests completed, {report['failed']} failed")
+        best[mode] = [float(h.result().best_f) for h in handles]
+        per_wave = m["busy_s"] / max(m["waves"], 1)
+        print(f"[dgo] serve --dgo {mode}: {m['waves']} waves, wall "
+              f"{loop_wall:.4f} s serving ({wall:.4f} s with warm-up), "
+              f"{per_wave:.4f} s a wave (busy), launches: popstep {n[0]}, "
+              f"fold alone {n[1]}")
+        check(n[0] > 0 and n[1] == 0,
+              f"serve --dgo {mode}: launches {n}")
+        out[f"dgo-serve: serve --dgo {mode}"] = n
+    check(best["pipelined"] == best["no-pipeline"],
+          "serve --dgo: pipelined and synchronous serving gave different "
+          "best_f for a request")
+    print("[dgo] serve --dgo: pipelined == no-pipeline best_f for every "
+          "request")
+    return out
+
+
+def profile_wave(dev, reqs) -> None:
+    """One full wave of the slot check under the profiler: its wall, the
+    batched step's device time and the idle share."""
+    from repro_torch.core.solver import solve_many
+
+    if dev.type != "cuda":
+        return
+    wave = reqs[:DGO_WAVE]
+    solve_many(wave, pad_to=DGO_WAVE)              # warm: steps bound
+    prof, wall = profiled(lambda: solve_many(wave, pad_to=DGO_WAVE),
+                          "popstep_kernel", cpu=False)
+    busy_us, n_acts = _device_activity(prof)
+    step_us, n_steps = _device_activity(prof, "popstep_kernel")
+    if n_steps == 0:       # the launch counts hold the path; this only times
+        print(f"[dgo] one wave of {DGO_WAVE} under the profiler: wall "
+              f"{wall:.4f} s; idle share and step time not measured (the "
+              f"profiler recorded no popstep launch in {PROFILE_TRIES} "
+              f"sessions)")
+        return
+    print(f"[dgo] one wave of {DGO_WAVE} under the profiler: wall "
+          f"{wall:.4f} s, device busy {busy_us / 1e6:.4f} s, idle share "
+          f"{1 - busy_us / 1e6 / wall:.3f}; popstep {n_steps} launches, "
+          f"{step_us / 1e3 / n_steps:.4f} ms each (the batched step's "
+          f"device time), {n_acts / n_steps:.1f} device activities a "
+          f"step")
+
+
+def phase_dgo(dev) -> tuple[dict, dict]:
+    """Phase 8: returns (the R-restart kernel's times and errors, each
+    main path's (launches, fold launches))."""
+    kern = phase_restart_kernel(dev)
+    slots = phase_dgo_slots(dev)
+    counts = {"dgo-serve: solve_many slots": slots["counts"]}
+    profile_wave(dev, slots["reqs"])
+    counts["dgo-serve: folded wave"] = phase_dgo_folded(dev)["counts"]
+    counts.update(phase_dgo_mesh(dev))
+    counts.update(phase_dgo_serve_cli(dev))
+    kern["wall_per_wave"] = slots["wall_per_wave"]
+    return kern, counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2125,11 +2760,13 @@ def main() -> None:
     fold_bound, fold_by = fold_bound_ms(fold)
     by_path = phase_main_path(dev, rs["ms"], rs["rastrigin_ms"])
     by_path.update(phase_schedule(dev))
-    n_launch = sum(n for n, _ in by_path.values())
-    n_fold = sum(f for _, f in by_path.values())
     errs, pt, packed = phase_packed(dev)
     ft = phase_flash(dev)
     served = phase_serve(dev)
+    restarts, dgo_paths = phase_dgo(dev)
+    by_path.update(dgo_paths)
+    n_launch = sum(n for n, _ in by_path.values())
+    n_fold = sum(f for _, f in by_path.values())
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card_line())
     source = "src/repro_torch/kernels/popstep/csrc/popstep.cu"
@@ -2155,12 +2792,14 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "popstep", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:172",
-        "launches": n_launch, "max_abs_err": rs["max_abs_err"],
+        "launches": n_launch,
+        "max_abs_err": max(rs["max_abs_err"], restarts["max_abs_err"]),
         "ms": rs["ms"], "plain_ms": rs["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "full_work_bound_ms": rs["full_work_bound_ms"],
         "by_path": {path: n for path, (n, _) in by_path.items()},
-        "by_shape": rs["by_shape"]}, {
+        "by_shape": rs["by_shape"],
+        "by_restarts": restarts["by_restarts"]}, {
         "name": "popstep_fold", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:110",
         "launches": n_fold, "max_abs_err": fold["max_abs_err"],

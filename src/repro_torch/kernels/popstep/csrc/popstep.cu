@@ -48,6 +48,19 @@
 //    does not depend on the order warps ran in.
 //    popstep_fold_kernel runs the same cross-block rule over given partials,
 //    for checks.
+//  * Shards.  A mesh of n_shards virtual shards (repro/core/distributed.py
+//    _build_shard_step) is the virtual blocks in n_shards equal runs: each
+//    run folds by the cross-block rule above, then a NaN shard wins the
+//    step (the reference's jnp.min over the gathered shard values,
+//    :272), which then carries no id, else the shards fold
+//    lexicographically from (+inf, sentinel) (fold_shards).  A dead shard
+//    is rows with ok = 0.
+//  * Restarts.  One launch steps R parents over the same rows: blockIdx.y
+//    is the restart, with its own parent, value buffer, virtual-block keys,
+//    counter, ticket and output pair, over gridDim.x blocks of the
+//    persistent grid.  A restart whose live flag is 0 (stalled, finished or
+//    padding) returns at once: no child is evaluated and its outputs are
+//    left as they were.  R = 1 without a live flag is the one-parent step.
 //
 // What bounds it: operations.  At the paper's largest problem (the
 // 680-variable remote-sensing MLP, 5,439 children, 256 samples) a full
@@ -166,8 +179,83 @@ __device__ void fold_vblocks(int n_vblocks, CandOf cand_of, const int* ids,
   }
 }
 
+// The shard-level rule: the virtual blocks in n_shards runs of
+// ``per_shard``; each run folds by the cross-block rule (one block: its
+// winner as it is; several: NaN blocks dropped, the rest lexicographically
+// from (+inf, sentinel)), then a NaN shard wins with id ``sentinel``, else
+// the shards fold lexicographically from (+inf, sentinel).  ``cand_of``
+// may differ between the lanes of a warp.  Called by every thread of one
+// block of kThreads; thread 0 writes the result.
+template <class CandOf>
+__device__ void fold_shards(int n_shards, int per_shard, CandOf cand_of,
+                            const int* ids, int sentinel, float* out_val,
+                            int* out_id) {
+  __shared__ float sv[kWarps];
+  __shared__ int sk[kWarps];
+  __shared__ float snan[kWarps];
+  __shared__ int shas[kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  float bv = CUDART_INF_F;
+  int bid = sentinel;
+  bool has_nan = false;
+  float nan_v = 0.0f;
+  for (int s = warp; s < n_shards; s += kWarps) {
+    float v = CUDART_INF_F;
+    int id = sentinel;
+    if (per_shard == 1) {
+      const Cand c = cand_of(s);
+      v = c.v;
+      id = c.row == INT_MAX ? sentinel : ids[c.row];
+    } else {
+      for (int vb = s * per_shard + lane; vb < (s + 1) * per_shard;
+           vb += 32) {
+        const Cand c = cand_of(vb);
+        if (!isnan(c.v) && c.row != INT_MAX) {
+          const int cid = ids[c.row];
+          if (lex_better(c.v, cid, v, id)) {
+            v = c.v;
+            id = cid;
+          }
+        }
+      }
+      warp_lex(v, id);
+    }
+    if (isnan(v)) {
+      if (!has_nan) nan_v = v;
+      has_nan = true;
+    } else if (lex_better(v, id, bv, bid)) {
+      bv = v;
+      bid = id;
+    }
+  }
+  if (lane == 0) {
+    sv[warp] = bv;
+    sk[warp] = bid;
+    snan[warp] = nan_v;
+    shas[warp] = has_nan;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWarps; ++w)
+      if (shas[w]) {
+        *out_val = snan[w];
+        *out_id = sentinel;
+        return;
+      }
+    for (int w = 1; w < kWarps; ++w)
+      if (lex_better(sv[w], sk[w], sv[0], sk[0])) {
+        sv[0] = sv[w];
+        sk[0] = sk[w];
+      }
+    *out_val = sv[0];
+    *out_id = sk[0];
+  }
+}
+
 struct StepArgs {
-  const signed char* parent;       // (n_vars * bits,) 0/1 parent bit string
+  const signed char* parent;       // (R, n_vars * bits) 0/1 parent bit strings
   const int* starts;               // (K,) segment starts
   const int* ends;                 // (K,) segment ends
   const int* ok;                   // (K,) 0 -> the row is +inf
@@ -184,12 +272,14 @@ struct StepArgs {
   ObjParams obj;
   int vblock;                      // rows per virtual block
   int n_vblocks;
+  int n_shards;                    // runs of n_vblocks / n_shards blocks
   int sentinel;                    // the cross-block fold's start id
-  float* vals;                     // (K,) each child's value
-  unsigned long long* keys;        // (n_vblocks,) all ones between launches
-  int* ctl;                        // [work counter, ticket], 0 between
-  float* out_val;
-  int* out_id;
+  const bool* live;                // (R,) 0 -> restart skipped, or null
+  float* vals;                     // (R, K) each child's value
+  unsigned long long* keys;        // (R, n_vblocks) all ones between launches
+  int* ctl;                        // (R, 2) [work counter, ticket], 0 between
+  float* out_val;                  // (R,)
+  int* out_id;                     // (R,)
 };
 
 // A child at a position of the work order: its row and what the row holds.
@@ -215,6 +305,15 @@ template <int OBJ>
 __global__ void __launch_bounds__(kThreads, 2)
     popstep_kernel(StepArgs a) {
   constexpr bool kReuse = OBJ == kRemoteSensing;
+  // restart r: its parent, its value buffer, its selection state and its
+  // output pair; a restart that is not live does nothing
+  const int r = blockIdx.y;
+  if (a.live != nullptr && !a.live[r]) return;
+  const signed char* parent =
+      a.parent + static_cast<size_t>(r) * (a.n_vars * a.bits);
+  float* vals = a.vals + static_cast<size_t>(r) * a.n_rows;
+  unsigned long long* keys = a.keys + static_cast<size_t>(r) * a.n_vblocks;
+  int* ctl = a.ctl + 2 * r;
   using RS = Objective<kRemoteSensing>;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
@@ -238,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int n_bits = a.n_vars * a.bits;
 #pragma unroll 8
   for (int i = threadIdx.x; i < n_bits; i += kThreads)
-    bits_s[i] = a.parent[i];
+    bits_s[i] = parent[i];
   if constexpr (kReuse) RS::stage(a.obj, data);
   __syncthreads();
   for (int v = threadIdx.x; v < a.n_vars; v += kThreads) {
@@ -259,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   while (idx < a.n_rows) {
     int next = a.n_rows;
     if (n_dealt < a.n_rows && lane == 0)
-      next = n_dealt + atomicAdd(a.ctl, 1);
+      next = n_dealt + atomicAdd(ctl, 1);
     float v = CUDART_INF_F;
     if (c.ok) {                         // uniform across the warp
       // variables the pattern can touch: [s / bits, end of [s, e)), or to
@@ -281,8 +380,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       __syncwarp();                     // xs is rewritten by the next child
     }
     if (lane == 0) {
-      a.vals[c.row] = v;
-      atomicMin(a.keys + c.row / a.vblock, cand_key(v, c.row));
+      vals[c.row] = v;
+      atomicMin(keys + c.row / a.vblock, cand_key(v, c.row));
     }
     idx = __shfl_sync(kFullMask, next, 0);
     if (idx < a.n_rows) c = child_at(a, idx);
@@ -295,27 +394,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ int last;
   __syncthreads();
   if (threadIdx.x == 0) {
-    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(a.ctl[1]);
+    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(ctl[1]);
     last = ticket.fetch_add(1, cuda::memory_order_acq_rel) ==
            static_cast<int>(gridDim.x) - 1;
   }
   __syncthreads();
   if (!last) return;
-  fold_vblocks(
-      a.n_vblocks,
-      [&](int vb) {
-        const unsigned long long k = __ldcg(a.keys + vb);
-        if (k == ~0ull) return Cand{CUDART_INF_F, INT_MAX};
-        return Cand{key_value(k, a.vals),
-                    static_cast<int>(static_cast<unsigned>(k))};
-      },
-      a.ids, a.sentinel, a.out_val, a.out_id);
+  const auto cand_of = [&](int vb) {
+    const unsigned long long k = __ldcg(keys + vb);
+    if (k == ~0ull) return Cand{CUDART_INF_F, INT_MAX};
+    return Cand{key_value(k, vals),
+                static_cast<int>(static_cast<unsigned>(k))};
+  };
+  if (a.n_shards == 1)
+    fold_vblocks(a.n_vblocks, cand_of, a.ids, a.sentinel, a.out_val + r,
+                 a.out_id + r);
+  else
+    fold_shards(a.n_shards, a.n_vblocks / a.n_shards, cand_of, a.ids,
+                a.sentinel, a.out_val + r, a.out_id + r);
   __syncthreads();
   for (int vb = threadIdx.x; vb < a.n_vblocks; vb += kThreads)
-    a.keys[vb] = ~0ull;
+    keys[vb] = ~0ull;
   if (threadIdx.x == 0) {
-    a.ctl[0] = 0;
-    a.ctl[1] = 0;
+    ctl[0] = 0;
+    ctl[1] = 0;
   }
 }
 
@@ -387,27 +489,35 @@ int popstep_grid(int obj_id, int smem, int* blocks) {
   return static_cast<int>(err);
 }
 
-// One step: every child's value in ``vals``, the best child's (value,
-// child id) in ``out_val``/``out_id``.  ``keys`` must hold all ones and
-// ``ctl`` zeros, as the launch before on this stream leaves them.
+// One step of ``restarts`` parents (R): every child's value in ``vals``
+// (R, K), each parent's best child's (value, child id) in ``out_val``/
+// ``out_id`` (R,); ``live`` (R,) or null skips restarts; the virtual blocks
+// fold in ``n_shards`` runs (fold_shards; 1: one fold over all of them).
+// ``keys`` (R, n_vblocks) must hold all ones and ``ctl`` (R, 2) zeros, as
+// the launch before on this stream leaves them.  ``blocks`` is the grid
+// of each restart.
 int popstep_step(const signed char* parent, float* vals, float* out_val,
                  int* out_id, const int* starts, const int* ends,
                  const int* ok, const unsigned long long* masks,
                  const int* order, const int* ids, int n_rows, int n_vars,
                  int bits, float lo, float scale, int obj_id, const float* c0,
                  const float* c1, int m, float param, int vblock,
-                 int n_vblocks, int sentinel, unsigned long long* keys,
-                 int* ctl, int blocks, int smem, void* stream) {
+                 int n_vblocks, int n_shards, int sentinel,
+                 unsigned long long* keys, int* ctl, int restarts,
+                 const bool* live, int blocks, int smem, void* stream) {
   using namespace popstep;
   const StepKernel fn = kernel_of(obj_id);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fn == nullptr || restarts < 1 || n_shards < 1 ||
+      n_vblocks % n_shards != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a{parent, starts, ends, ok, masks, order, ids, n_rows, n_vars,
              bits, lo, scale, ObjParams{c0, c1, m, param}, vblock, n_vblocks,
-             sentinel, vals, keys, ctl, out_val, out_id};
+             n_shards, sentinel, live, vals, keys, ctl, out_val, out_id};
   void* args[] = {&a};
   const cudaError_t err = cudaLaunchKernel(
-      reinterpret_cast<const void*>(fn), dim3(blocks), dim3(kThreads), args,
-      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+      reinterpret_cast<const void*>(fn), dim3(blocks, restarts),
+      dim3(kThreads), args, static_cast<size_t>(smem),
+      static_cast<cudaStream_t>(stream));
   return static_cast<int>(err ? err : cudaGetLastError());
 }
 

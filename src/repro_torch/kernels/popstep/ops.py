@@ -13,7 +13,11 @@ arithmetic with tensor operations.  No path falls back from one to the
 other.
 
 A step is one launch of ``popstep_kernel``: every child's value, the
-virtual blocks' winners and the cross-block fold.  ``launches`` counts
+virtual blocks' winners and the cross-block fold.  ``n_shards`` groups the
+virtual blocks into the shards of a mesh (the fold then runs per shard and
+across shards, :func:`fold_values_plain`); ``restarts=R`` binds a step of
+R parents over the same rows, one launch for all of them, with a live flag
+per parent (:class:`_CudaStep`).  ``launches`` counts
 it where a step launches it.  ``fold_launches`` counts launches of the
 cross-block fold on its own (``popstep_fold_kernel``), which only
 :func:`fold_partials` (the fold alone, for checks) makes: no step does,
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -42,6 +47,9 @@ from repro_torch.kernels._plain import _INT_MAX, child_levels, nan_first_rows
 
 launches = 0
 fold_launches = 0
+# the counts are bumped from every thread that launches (the waves of the
+# batched engine run on worker threads)
+_COUNTS = threading.Lock()
 
 WARPS = 8                 # warps per thread block, a child each (kWarps)
 MAX_SMEM = 226 * 1024     # an H100 block's 227 KB (opt-in), less static
@@ -116,16 +124,51 @@ def cand_keys_plain(vals: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def fold_values_plain(vals: torch.Tensor, ids: torch.Tensor, n_vblocks: int,
-                      sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      sentinel: int, n_shards: int = 1
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's selection over every child's value: ``vals`` (K,) in
     ``n_vblocks`` equal runs; each run's winner is its smallest key
     (:func:`cand_keys_plain`), its value read back from ``vals``; then the
     cross-block rule.  The same result as :func:`fold_partials_plain` with
-    one partial per row."""
+    one partial per row.  With ``n_shards`` the runs are grouped into that
+    many shards: the cross-block rule runs per shard, then
+    :func:`_shard_fold` across them."""
+    if n_shards > 1:
+        per = vals.shape[0] // n_shards
+        folds = [fold_values_plain(vals[s * per:(s + 1) * per],
+                                   ids[s * per:(s + 1) * per],
+                                   n_vblocks // n_shards, sentinel)
+                 for s in range(n_shards)]
+        return _shard_fold(torch.stack([v for v, _ in folds]),
+                           torch.stack([i for _, i in folds]), sentinel)
     rows = torch.arange(vals.shape[0], device=vals.device)
     key = cand_keys_plain(vals, rows).reshape(n_vblocks, -1).amin(1)
     row = key & 0xFFFFFFFF
     return _cross_fold(vals[row], row, ids, sentinel)
+
+
+def _shard_fold(best: torch.Tensor, gid: torch.Tensor,
+                sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross-shard rule (``fold_shards`` in ``csrc/popstep.cu``) over
+    each shard's (value, child id): a NaN shard wins with id ``sentinel``
+    (the first one's value), else the shards fold lexicographically from
+    (+inf, sentinel)."""
+    gid = gid.to(torch.int64)
+    nan = torch.isnan(best)
+    v2 = torch.where(nan, torch.inf, best)
+    win = v2.amin()
+    hit = ~nan & (v2 == win)
+    win_id = torch.where(hit, gid, _INT_MAX).amin()
+    win_id = torch.where(win == torch.inf,
+                         torch.clamp(win_id, max=sentinel), win_id)
+    own = hit & (gid == win_id)
+    win_val = torch.where(own.any(), best[own.to(torch.int8).argmax()],
+                          torch.inf)
+    any_nan = nan.any()
+    win_val = torch.where(any_nan, best[nan.to(torch.int8).argmax()],
+                          win_val)
+    win_id = torch.where(any_nan, sentinel, win_id)
+    return win_val, win_id.to(torch.int32)
 
 
 def hidden_unit_masks(n_bits: int, bits: int) -> np.ndarray:
@@ -204,22 +247,51 @@ def child_values_plain(objective, parent_bits: torch.Tensor,
 def population_step_ids_plain(objective, parent_bits: torch.Tensor,
                               child_ids: torch.Tensor, enc: Encoding, *,
                               valid: torch.Tensor | None = None,
-                              virtual_block: int | None = None
+                              virtual_block: int | None = None,
+                              n_shards: int = 1
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`population_step_ids`, on any
     device."""
     k = child_ids.shape[0]
-    n_vb = _n_vblocks(k, virtual_block)
+    n_vb = _n_vblocks(k, virtual_block, n_shards)
     vals = child_values_plain(objective, parent_bits, child_ids, enc, valid)
     ids = child_ids.to(torch.int64).clamp(0, 2 * enc.n_bits - 2)
-    return fold_values_plain(vals, ids, n_vb, enc.population)
+    return fold_values_plain(vals, ids, n_vb, enc.population, n_shards)
 
 
-def _n_vblocks(k: int, virtual_block: int | None) -> int:
+def population_steps_plain(objective, parents: torch.Tensor,
+                           child_ids: torch.Tensor, enc: Encoding, *,
+                           valid: torch.Tensor | None = None,
+                           virtual_block: int | None = None,
+                           n_shards: int = 1,
+                           live: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of a step of R parents ``(R, N)``: the
+    one-parent step (:func:`population_step_ids_plain`) on each parent
+    whose ``live`` flag is set, so a parent's result does not depend on
+    the others; ``(value, id)`` (R,) each, (+inf, population) where not
+    live."""
+    flags = ([True] * parents.shape[0] if live is None
+             else [bool(f) for f in live.tolist()])
+    vals = torch.full((parents.shape[0],), torch.inf, device=parents.device)
+    ids = torch.full((parents.shape[0],), enc.population, dtype=torch.int32,
+                     device=parents.device)
+    for r, flag in enumerate(flags):
+        if flag:
+            vals[r], ids[r] = population_step_ids_plain(
+                objective, parents[r], child_ids, enc, valid=valid,
+                virtual_block=virtual_block, n_shards=n_shards)
+    return vals, ids
+
+
+def _n_vblocks(k: int, virtual_block: int | None, n_shards: int = 1) -> int:
     vb = k if virtual_block is None else int(virtual_block)
     if k < 1 or vb < 1 or k % vb:
         raise ValueError(f"{k} child ids do not split into virtual blocks "
                          f"of {virtual_block}")
+    if n_shards < 1 or (k // vb) % n_shards:
+        raise ValueError(f"{k // vb} virtual blocks do not split into "
+                         f"{n_shards} shards")
     return k // vb
 
 
@@ -265,41 +337,84 @@ class _CudaStep:
     float32 value of every child of the latest launch (+inf where not
     valid).  The selection state (the virtual blocks' keys, the work
     counter and the ticket) lives here and each launch leaves it reset for
-    the next, so one bound step runs on one stream at a time."""
+    the next, so one bound step runs on one stream: the first call's, and
+    a call from another stream raises.
+
+    Bound with ``restarts=R``: ``step(parents, live=None) -> (values,
+    ids)``, ``parents`` (R, N) and ``live`` an (R,) bool tensor on the card
+    (None: every parent); one launch steps every live parent, each with its
+    own selection state, and ``values`` is (R, K).  A parent that is not
+    live costs no evaluation and its outputs are not written."""
 
     def __init__(self, lib, enc: Encoding, dev, n_rows: int, args: tuple,
-                 keep: list):
+                 keep: list, restarts: int | None, blocks: int, smem: int):
         self._lib, self._enc, self._dev, self._k = lib, enc, dev, n_rows
         self._args = args        # popstep_step's arguments after out_id
         self._keep = keep        # the device arrays behind those pointers
+        self._r = restarts       # None: one parent, (N,)
+        self._grid = (blocks, smem)
+        self._stream = None      # the stream of the first launch
         self.values = None
 
-    def __call__(self, parent_bits: torch.Tensor):
-        global launches
-        enc, dev, k = self._enc, self._dev, self._k
-        if parent_bits.device != dev or parent_bits.shape != (enc.n_bits,):
-            raise ValueError(f"parent_bits must be ({enc.n_bits},) on {dev}, "
-                             f"got {tuple(parent_bits.shape)} on "
+    def _check(self, parent_bits: torch.Tensor, live) -> int:
+        enc, dev, r = self._enc, self._dev, self._r
+        want = (enc.n_bits,) if r is None else (r, enc.n_bits)
+        if parent_bits.device != dev or parent_bits.shape != want:
+            raise ValueError(f"parent_bits must be {want} on {dev}, got "
+                             f"{tuple(parent_bits.shape)} on "
                              f"{parent_bits.device}")
+        if live is not None:
+            if r is None:
+                raise ValueError("a live flag needs a step bound with "
+                                 "restarts=R")
+            if (live.device != dev or live.dtype != torch.bool
+                    or live.shape != (r,)):
+                raise ValueError(f"live must be ({r},) torch.bool on {dev}, "
+                                 f"got {tuple(live.shape)} {live.dtype} on "
+                                 f"{live.device}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if self._stream is None:
+            self._stream = stream
+        elif stream != self._stream:
+            raise RuntimeError(
+                f"this bound popstep step runs on stream {self._stream:#x} "
+                f"and keeps its selection state on the card between "
+                f"launches; bind another step for stream {stream:#x}")
+        return stream
+
+    def __call__(self, parent_bits: torch.Tensor, live=None):
+        global launches
+        stream = self._check(parent_bits, live)
+        k, n = self._k, 1 if self._r is None else self._r
         parent = parent_bits.to(torch.int8).contiguous()
-        # every child's value, then the step's (value, id): one allocation
-        buf = torch.empty(k + 2, dtype=torch.float32, device=dev)
+        # every child's value, then each parent's (value, id): one allocation
+        buf = torch.empty(n * (k + 2), dtype=torch.float32, device=self._dev)
         ptr = buf.data_ptr()
         err = self._lib.popstep_step(
-            parent.data_ptr(), ptr, ptr + 4 * k, ptr + 4 * (k + 1),
-            *self._args, torch.cuda.current_stream(dev).cuda_stream)
+            parent.data_ptr(), ptr, ptr + 4 * n * k, ptr + 4 * n * (k + 1),
+            *self._args, n, None if live is None else live.data_ptr(),
+            *self._grid, stream)
         if err:
             raise RuntimeError(f"popstep launch failed: CUDA error {err}")
-        launches += 1
-        self.values = buf[:k]
-        return buf[k], buf[k + 1:].view(torch.int32)[0]
+        with _COUNTS:
+            launches += 1
+        vals = buf[n * k: n * (k + 1)]
+        ids = buf[n * (k + 1):].view(torch.int32)
+        if self._r is None:
+            self.values = buf[:k]
+            return vals[0], ids[0]
+        self.values = buf[:n * k].view(n, k)
+        return vals, ids
 
 
-def _prepare_cuda(objective, child_ids, enc, valid, n_vb, *, reuse=True):
+def _prepare_cuda(objective, child_ids, enc, valid, n_vb, n_shards=1,
+                  restarts=None, *, reuse=True):
     """Check the inputs and build every device array that does not depend
     on the parent; returns the bound step (:class:`_CudaStep`).
     ``reuse=False`` marks every hidden unit of the remote-sensing MLP, so
-    each child is evaluated in full (the same values, bitwise)."""
+    each child is evaluated in full (the same values, bitwise).  With
+    ``restarts=R`` each parent has its own keys and counters, and each
+    gets ``1/R`` of the persistent grid."""
     kernel = _kernel_of(objective)
     if kernel is None:
         raise ValueError(
@@ -343,11 +458,14 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb, *, reuse=True):
     ids32 = ids.to(torch.int32).contiguous()
     consts = [c.to(device=dev, dtype=torch.float32).contiguous()
               for c in kernel.consts] + [None, None]
-    keys = torch.full((n_vb,), -1, dtype=torch.int64, device=dev)
-    ctl = torch.zeros(2, dtype=torch.int32, device=dev)
+    n_par = 1 if restarts is None else int(restarts)
+    if n_par < 1:
+        raise ValueError(f"restarts must be >= 1, got {restarts}")
+    keys = torch.full((n_par, n_vb), -1, dtype=torch.int64, device=dev)
+    ctl = torch.zeros((n_par, 2), dtype=torch.int32, device=dev)
 
-    grid = min(_resident_blocks(lib, kernel.obj_id, smem, dev),
-               math.ceil(k / WARPS))
+    grid = min(math.ceil(_resident_blocks(lib, kernel.obj_id, smem, dev)
+                         / n_par), math.ceil(k / WARPS))
     scale = float(torch.tensor(enc.scale, dtype=torch.float32))
     lo = float(torch.tensor(enc.lo, dtype=torch.float32))
     # the kernel reads these through raw pointers: the bound step keeps
@@ -357,9 +475,9 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb, *, reuse=True):
     p = [None if t is None else t.data_ptr() for t in keep]
     args = (*p[:6], k, enc.n_vars, enc.bits, lo, scale, kernel.obj_id,
             p[6], p[7], 0 if consts[0] is None else consts[0].shape[0],
-            float(kernel.param), k // n_vb, n_vb, enc.population, p[8], p[9],
-            grid, smem)
-    return _CudaStep(lib, enc, dev, k, args, keep)
+            float(kernel.param), k // n_vb, n_vb, n_shards, enc.population,
+            p[8], p[9])
+    return _CudaStep(lib, enc, dev, k, args, keep, restarts, grid, smem)
 
 
 def _resident_blocks(lib, obj_id: int, smem: int, dev) -> int:
@@ -413,7 +531,8 @@ def fold_partials(part_val: torch.Tensor, part_row: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"popstep fold launch failed: CUDA error {err}")
-    fold_launches += 1
+    with _COUNTS:
+        fold_launches += 1
     return out_val[0], out_id[0]
 
 
@@ -423,26 +542,44 @@ def fold_partials(part_val: torch.Tensor, part_row: torch.Tensor,
 
 def prepare_step_ids(objective, child_ids: torch.Tensor, enc: Encoding, *,
                      valid: torch.Tensor | None = None,
-                     virtual_block: int | None = None):
+                     virtual_block: int | None = None, n_shards: int = 1,
+                     restarts: int | None = None):
     """Bind a step over a fixed id subset once; returns ``launch(
     parent_bits) -> (best value, global child id)``, 0-d tensors on the
     ids' device with no host synchronisation.  On CUDA ids, ``launch``
     runs the kernel (after checking the inputs here, once); on CPU ids
-    it runs the plain version.  See :func:`population_step_ids`."""
-    n_vb = _n_vblocks(child_ids.shape[0], virtual_block)
+    it runs the plain version.  See :func:`population_step_ids`.
+
+    ``n_shards`` folds the virtual blocks per shard and then across shards
+    (:func:`fold_values_plain`).  ``restarts=R`` binds ``launch(parents,
+    live=None) -> (values, ids)`` over R parents ``(R, N)``: one kernel
+    launch for every live parent on CUDA, the one-parent plain step per
+    live parent on the CPU (:func:`population_steps_plain`)."""
+    n_vb = _n_vblocks(child_ids.shape[0], virtual_block, n_shards)
     if child_ids.is_cuda:
-        return _prepare_cuda(objective, child_ids, enc, valid, n_vb)
+        return _prepare_cuda(objective, child_ids, enc, valid, n_vb,
+                             n_shards, restarts)
     if child_ids.device.type != "cpu":
         raise ValueError(f"popstep runs on CUDA or CPU tensors, got "
                          f"{child_ids.device}")
 
-    def plain(parent_bits: torch.Tensor):
+    def plain(parent_bits: torch.Tensor, live=None):
         if parent_bits.device != child_ids.device:
             raise ValueError(f"parent_bits is on {parent_bits.device}, "
                              f"child_ids on {child_ids.device}")
-        return population_step_ids_plain(objective, parent_bits, child_ids,
-                                         enc, valid=valid,
-                                         virtual_block=virtual_block)
+        if restarts is None:
+            if live is not None:
+                raise ValueError("a live flag needs a step bound with "
+                                 "restarts=R")
+            return population_step_ids_plain(
+                objective, parent_bits, child_ids, enc, valid=valid,
+                virtual_block=virtual_block, n_shards=n_shards)
+        if parent_bits.shape != (restarts, enc.n_bits):
+            raise ValueError(f"parent_bits must be ({restarts}, "
+                             f"{enc.n_bits}), got {tuple(parent_bits.shape)}")
+        return population_steps_plain(
+            objective, parent_bits, child_ids, enc, valid=valid,
+            virtual_block=virtual_block, n_shards=n_shards, live=live)
 
     return plain
 
@@ -450,7 +587,7 @@ def prepare_step_ids(objective, child_ids: torch.Tensor, enc: Encoding, *,
 def population_step_ids(objective, parent_bits: torch.Tensor,
                         child_ids: torch.Tensor, enc: Encoding, *,
                         valid: torch.Tensor | None = None,
-                        virtual_block: int | None = None
+                        virtual_block: int | None = None, n_shards: int = 1
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused step over an id subset -> (best value, global child id) as
     0-d tensors on the parent's device (no host synchronisation).
@@ -462,10 +599,12 @@ def population_step_ids(objective, parent_bits: torch.Tensor,
     into equal runs that are selected as the distributed engine's
     virtual blocks are (see :func:`fold_partials_plain`); ``None`` is one
     run, the semantics of ``repro.kernels.popstep.ops.population_step_ids``
-    with ``jnp.argmin``'s NaN rule.
+    with ``jnp.argmin``'s NaN rule.  ``n_shards`` groups the virtual blocks
+    into the shards of a mesh (:func:`fold_values_plain`).
     """
     return prepare_step_ids(objective, child_ids, enc, valid=valid,
-                            virtual_block=virtual_block)(parent_bits)
+                            virtual_block=virtual_block,
+                            n_shards=n_shards)(parent_bits)
 
 
 def child_values(objective, parent_bits: torch.Tensor,

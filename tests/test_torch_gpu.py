@@ -609,3 +609,94 @@ def test_lm_prefill_routes_every_layer_through_the_kernel(cuda):
         dtype=torch.float32)
     assert flash.launches == arch.n_layers
     assert float((got - want).abs().max()) <= 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the R-restart popstep launch, meshes and the batched engine on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r,live", [(1, [True]), (3, [True, False, True]),
+                                    (8, [True] * 5 + [False, True, False])])
+def test_restart_launch_matches_plain(cuda, r, live):
+    """One launch for R remote-sensing parents (some not live) vs the
+    one-parent plain step on each live parent; each live result also
+    bitwise a one-parent launch's."""
+    obj = objectives.get("remote_sensing")
+    par = torch.as_tensor(np.random.default_rng(r).integers(
+        0, 2, (r, obj.encoding.n_bits)).astype(np.int8), device=cuda)
+    chip_smoke.check_restarts("remote_sensing", "remote_sensing", obj,
+                              obj.encoding, par, live, cuda)
+
+
+@pytest.mark.parametrize("phase", range(8))
+def test_restart_launch_on_a_masked_mesh(cuda, phase):
+    """rastrigin n=9 at 16 bits on 8 one-block shards, two dead, at each
+    rotation phase."""
+    obj = objectives.get("rastrigin", n=9)
+    enc = obj.encoding.with_bits(16)
+    par = torch.as_tensor(np.random.default_rng(phase).integers(
+        0, 2, (8, enc.n_bits)).astype(np.int8), device=cuda)
+    chip_smoke.check_restarts("rastrigin n=9", "rastrigin", obj, enc, par,
+                              [True] * 8, cuda, n_shards=8, dead=(1, 4),
+                              phase=phase)
+
+
+@pytest.mark.parametrize("shards,vb", [(8, 256), (2, 23)])
+def test_restart_launch_nan_child_across_shards(cuda, shards, vb):
+    """A NaN child: a shard of one block makes the step NaN, a shard of
+    several drops the block (the plain rule, held by check_restarts)."""
+    from repro_torch.core.encoding import encode
+
+    xor = chip_smoke._xor_with_nan_sample()
+    safe = torch.as_tensor([4, 4, -4, -4, 0.1, 0.1, 1, 1],
+                           dtype=torch.float32, device=cuda)
+    par = torch.stack([encode(safe, xor.encoding)] * 3)
+    chip_smoke.check_restarts("xor nan", "xor", xor, xor.encoding, par,
+                              [True, False, True], cuda, n_shards=shards,
+                              vb=vb)
+
+
+def test_bound_step_refuses_a_second_stream(cuda):
+    obj = objectives.get("rastrigin", n=9)
+    enc = obj.encoding
+    ids = torch.arange(enc.population, device=cuda)
+    step = ops.prepare_step_ids(obj, ids, enc, restarts=2)
+    par = torch.zeros((2, enc.n_bits), dtype=torch.int8, device=cuda)
+    step(par)
+    other = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(other):
+        with pytest.raises(RuntimeError, match="bind another step"):
+            step(par)
+    with pytest.raises(ValueError, match="torch.bool"):
+        step(par, torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def test_solve_many_slots_equal_per_request_solves_on_card(cuda):
+    """Waves of 8 (the last partial) on the card: one popstep launch per
+    batched step, each slot bit for bit its per-request solve."""
+    from repro_torch.core.solver import Batched, SolveRequest, solve_many
+
+    prob = Problem.get("rastrigin", n=9)
+    reqs = [SolveRequest(prob, seed=i, max_iters=(40, 12, 30)[i % 3])
+            for i in range(11)]
+    ops.launches = ops.fold_launches = 0
+    outs = solve_many(reqs, pad_to=8)
+    torch.cuda.synchronize()
+    n, n_fold = ops.launches, ops.fold_launches
+    assert n > 0 and n_fold == 0
+    assert n <= max(o.iterations for o in outs[:8]) + \
+        max(o.iterations for o in outs[8:]) + 2 * STALL_CHECK_EVERY
+    for req, out in zip(reqs, outs):
+        one = solve(prob, Batched(restarts=1), seed=req.seed,
+                    max_iters=req.max_iters)
+        assert chip_smoke._bitwise(out, one), req
+
+
+def test_masked_mesh_device_driver_equals_host_driver(cuda):
+    prob = Problem.get("rastrigin", n=9)
+    mask = [True, False, True, True, False, True, True, True]
+    x0 = np.random.default_rng(4).uniform(-5.12, 5.12, 9).astype(np.float32)
+    runs = [solve(prob, Distributed(mesh=8, quorum_mask=mask, driver=d),
+                  x0=x0, max_iters=64) for d in ("device", "host")]
+    assert runs[0].extras["history"] == runs[1].extras["history"]
+    assert float(runs[0].best_f) < runs[0].extras["history"][0]

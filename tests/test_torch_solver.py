@@ -10,6 +10,7 @@ differently while the histories still agree, so only the runs named in
 ``SAME_BITS`` (no near-tie anywhere) must end on the same bit string.
 The seeds were picked so that each run is compared over (almost) its
 whole length."""
+import dataclasses
 import functools
 
 import jax
@@ -218,11 +219,13 @@ def test_engine_builders_default_to_the_card(monkeypatch, builder):
 
 
 def test_unported_strategies_raise():
-    """Only ``batched`` of the reference's keys is still unported."""
-    assert tsolver.strategy_names() == ("clustered", "distributed", "fused",
-                                        "sequential")
-    with pytest.raises(ValueError, match=r"'batched' \(not ported"):
-        tsolver.solve("rastrigin", "batched", device="cpu")
+    """Every strategy key of the reference is registered; an unknown key
+    raises with the registered ones."""
+    assert tsolver.strategy_names() == jsolver.strategy_names() == (
+        "batched", "clustered", "distributed", "fused", "sequential")
+    with pytest.raises(ValueError, match=r"unknown strategy 'nonesuch'.*"
+                                         r"registered: batched"):
+        tsolver.solve("rastrigin", "nonesuch", device="cpu")
 
 
 def test_popstep_needs_a_device_form_on_cuda():
@@ -237,12 +240,30 @@ def test_popstep_needs_a_device_form_on_cuda():
 
 @pytest.mark.parametrize("strategy,match", [
     (tsolver.Distributed(quorum_mask=[False]), "quorum"),
-    (tsolver.Distributed(driver="host", injector=object()), "injection"),
+    (tsolver.Distributed(driver="host", injector="always"), "injection"),
     (tsolver.Distributed(mesh=2), "mesh"),
 ])
 def test_unported_options_raise(strategy, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tsolver.solve("rastrigin", strategy, device="cpu")
+    """The options that raised before meshes were ported now run as the
+    reference runs them: a quorum with no live shard takes one step and
+    stalls, an injector that fails every round empties the quorum of one
+    shard and stops the run at its start, and a mesh of two shards takes
+    the one-shard run's steps."""
+    from repro_torch.runtime import FailureInjector
+
+    if strategy.injector == "always":
+        strategy = dataclasses.replace(strategy,
+                                       injector=FailureInjector(1.0))
+    x0 = np.asarray([3.1, -2.2], np.float32)
+    res = tsolver.solve("rastrigin", strategy, x0=x0, device="cpu")
+    assert res.extras["history"][0] == pytest.approx(23.0913, rel=1e-4)
+    if match == "mesh":
+        one = tsolver.solve("rastrigin", tsolver.Distributed(), x0=x0,
+                            device="cpu")
+        assert res.extras["history"] == one.extras["history"]
+    else:
+        assert res.iterations == (1 if match == "quorum" else 0)
+        assert float(res.best_f) == res.extras["history"][0]
 
 
 def test_nonfinite_hygiene():
