@@ -114,8 +114,12 @@ Phases (any failure exits non-zero; none is caught):
              vs its plain version (the one-parent plain step on each live
              parent) on the same CUDA tensors — remote_sensing at R = 1, 3
              and 8 with parents not live, at the folded schedule's 16-bit
-             rows (21,759 children) at R = 8, rastrigin n=9 at 16 bits on
-             8 shards with two dead at every rotation phase, and the XOR
+             rows (21,759 children) at R = 8, remote_sensing (R = 1 and 8,
+             parents not live: the mesh path's shape) and rastrigin n=9 at
+             16 bits (R = 8), each on 8 shards with two dead at every
+             rotation phase, rastrigin n=9 at its 8-bit registry encoding
+             on one shard at R = 8 with parents not live (serve --dgo's
+             shape), and the XOR
              net with a NaN-making sample on shards of one block (the
              step's value NaN) and of several (the NaN block dropped):
              winner ids equal (or a near-tie), values and every child's
@@ -147,7 +151,9 @@ phases 4, 4b and 8, each path's count under ``by_path`` —, ``popstep_fold``
 ``popstep``'s launch, timed through the check entry —, ``graycode``,
 ``fixedpoint``, ``popmin``, ``popmin_fold`` — merged into ``popmin``'s
 launch, timed through the check entry —, ``flash_attention`` — f32 — and
-``flash_attention_bf16``), and
+``flash_attention_bf16``; each entry's ``clock`` is ``"profiler"``
+when every one of its times is the profiler's device time over whole
+records, else it names each time that is not), and
 ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it exits non-zero and prints no
@@ -269,6 +275,25 @@ def profiled(fn, name: str | None = None, want: int | None = None, *,
     return prof, wall
 
 
+# the clock behind each kernel entry's times in the kernels JSON line:
+# device_ms notes, under the entry set by timing_for, every time it could
+# not take from whole profiler records ("clock" in the line)
+CLOCK_NOTES: dict = {}
+_TIMING_FOR = ["popstep"]
+
+
+def timing_for(entry: str) -> None:
+    """The kernel entry whose times the next device_ms calls take."""
+    _TIMING_FOR[0] = entry
+
+
+def clock_of(entry: str) -> str:
+    """``"profiler"`` when every time of ``entry`` is the profiler's
+    device time over whole records, else what it was instead."""
+    notes = CLOCK_NOTES.get(entry)
+    return "profiler" if not notes else "profiler; " + "; ".join(notes)
+
+
 def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     """Mean device milliseconds per call: the CUDA activity that
     ``torch.profiler`` records over ``reps`` calls, or, when ``name`` is
@@ -278,8 +303,10 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     some machines the profiler loses whole sessions' records, e.g. every
     launch of a run of three 85 ms kernels), the time is taken with CUDA
     events around the calls instead (:func:`time_ms`; host work between
-    launches included when the host is the slower side), and a line says
-    so.  (Off the card, for a rehearsal, the host clock.)"""
+    launches included when the host is the slower side).  That, and a
+    total over records of which some were lost, is noted in
+    ``CLOCK_NOTES`` and printed.  (Off the card, for a rehearsal, the
+    host clock.)"""
     import torch
 
     if dev.type != "cuda":
@@ -289,12 +316,21 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     prof, _ = profiled(lambda: [fn() for _ in range(reps)], name,
                        reps if name else None, calls=reps)
     us, n = _device_activity(prof, name)
+    what = name or "plain/library"
+    notes = CLOCK_NOTES.setdefault(_TIMING_FOR[0], [])
     if us > 0:
-        return us / 1e3 / (reps if name is None else n)
+        ms = us / 1e3 / (reps if name is None else n)
+        if name is None and n % reps:
+            notes.append(f"{what} {ms:.4f} ms: {n} records for {reps} "
+                         f"calls")
+            print(f"[time] {what}: {n} records for {reps} equal calls, "
+                  f"some lost: {ms:.4f} ms a call counts only the others")
+        return ms
     ms = time_ms(fn, reps, dev)
-    print(f"[time] the profiler recorded no device time"
-          f"{f' for {name!r}' if name else ''} in {PROFILE_TRIES} "
-          f"sessions: {ms:.4f} ms a call by CUDA events instead")
+    notes.append(f"{what} {ms:.4f} ms by CUDA events")
+    print(f"[time] the profiler recorded no device time for {what} in "
+          f"{PROFILE_TRIES} sessions: {ms:.4f} ms a call by CUDA events "
+          f"instead")
     return ms
 
 
@@ -2299,7 +2335,7 @@ def _xor_with_nan_sample():
 
 def phase_restart_kernel(dev) -> dict:
     """8a: the R-restart popstep launch against its plain version at the
-    serving shapes; returns its times and errors."""
+    shapes of every path of this phase; returns its times and errors."""
     import torch
 
     from repro_torch.core import objectives
@@ -2344,6 +2380,30 @@ def phase_restart_kernel(dev) -> dict:
         err = max(err, res["max_abs_err"])
         if phase == 0:
             times[f"{name2}_16bit_R{DGO_WAVE}_mesh{DGO_MESH}"] = res
+    # the mesh path (8d) at full width: 8 shards of 680 children in three
+    # virtual blocks each, two dead, at every rotation phase
+    for r, live in ((1, [True]), (DGO_WAVE, [True] * 5 + [False, True,
+                                                          False])):
+        par = torch.as_tensor(rng.integers(0, 2, (r, enc.n_bits)).astype(
+            np.int8), device=dev)
+        for phase in range(DGO_MESH):
+            timed = r == DGO_WAVE and phase == 0
+            res = check_restarts(f"{name} {enc.bits} bits mesh", name, obj,
+                                 enc, par, live, dev, n_shards=DGO_MESH,
+                                 dead=DGO_DEAD, phase=phase, timed=timed)
+            err = max(err, res["max_abs_err"])
+            if timed:
+                times[f"{name}_{enc.bits}bit_R{r}_mesh{DGO_MESH}"] = res
+    # serve --dgo's second problem: rastrigin n=9 at its registry
+    # encoding, one shard
+    enc9 = obj2.encoding
+    par = torch.as_tensor(rng.integers(0, 2, (DGO_WAVE, enc9.n_bits))
+                          .astype(np.int8), device=dev)
+    res = check_restarts(f"{name2} {kw2} {enc9.bits} bits", name2, obj2,
+                         enc9, par, [True] * 5 + [False, True, False], dev,
+                         timed=True)
+    times[f"{name2}_{enc9.bits}bit_R{DGO_WAVE}"] = res
+    err = max(err, res["max_abs_err"])
     # a NaN child: shards of one block stall on it, shards of several
     # blocks drop its block
     xor = _xor_with_nan_sample()
@@ -2756,13 +2816,18 @@ def main() -> None:
     phase_build()
     rs = phase_kernel_vs_plain(dev)
     bound_ms, bound_by = popstep_bound_ms(rs)
+    timing_for("popstep_fold")
     fold = phase_fold(dev, rs["enc"].population)
     fold_bound, fold_by = fold_bound_ms(fold)
+    timing_for("popstep")
     by_path = phase_main_path(dev, rs["ms"], rs["rastrigin_ms"])
     by_path.update(phase_schedule(dev))
+    timing_for("packed")
     errs, pt, packed = phase_packed(dev)
+    timing_for("flash_attention")
     ft = phase_flash(dev)
     served = phase_serve(dev)
+    timing_for("popstep")
     restarts, dgo_paths = phase_dgo(dev)
     by_path.update(dgo_paths)
     n_launch = sum(n for n, _ in by_path.values())
@@ -2778,7 +2843,7 @@ def main() -> None:
                 "replaces": replaces, "launches": counts[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, "clock": clock_of("packed")}
 
     kernels_dir = "src/repro_torch/kernels"
     # no single PyTorch call computes popstep, its fold, graycode or
@@ -2796,6 +2861,7 @@ def main() -> None:
         "max_abs_err": max(rs["max_abs_err"], restarts["max_abs_err"]),
         "ms": rs["ms"], "plain_ms": rs["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+        "clock": clock_of("popstep"),
         "full_work_bound_ms": rs["full_work_bound_ms"],
         "by_path": {path: n for path, (n, _) in by_path.items()},
         "by_shape": rs["by_shape"],
@@ -2805,7 +2871,7 @@ def main() -> None:
         "launches": n_fold, "max_abs_err": fold["max_abs_err"],
         "ms": fold["ms"], "plain_ms": fold["plain_ms"],
         "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": None,
-        "merged_into": "popstep"},
+        "clock": clock_of("popstep_fold"), "merged_into": "popstep"},
         packed_entry("graycode", f"{kernels_dir}/graycode/csrc/graycode.cu",
                      "src/repro/kernels/graycode/kernel.py:74",
                      errs["graycode"], pt["graycode"], pt["graycode_plain"]),
@@ -2835,7 +2901,8 @@ def main() -> None:
         "max_abs_err": max(ft["max_abs_err"], served["max_abs_err"]),
         "ms": ft["serve"], "plain_ms": ft["serve_plain"],
         "bound_ms": ft["serve_bound"], "bound_by": ft["serve_bound_by"],
-        "library_ms": ft["serve_sdpa_f32"]}, {
+        "library_ms": ft["serve_sdpa_f32"],
+        "clock": clock_of("flash_attention")}, {
         "name": "flash_attention_bf16", "route": "cuda",
         "source": f"{kernels_dir}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
@@ -2844,7 +2911,8 @@ def main() -> None:
         "ms": ft["serve_bf16"], "plain_ms": ft["serve_plain_bf16"],
         "bound_ms": ft["serve_bf16_bound"],
         "bound_by": ft["serve_bf16_bound_by"],
-        "library_ms": ft["serve_sdpa_bf16"]}]}))
+        "library_ms": ft["serve_sdpa_bf16"],
+        "clock": clock_of("flash_attention")}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -48,11 +48,10 @@ raises ``RuntimeError`` without one (:func:`resolve_device`); pass
 ``device="cpu"`` for the plain PyTorch versions.
 
 Drivers: ``"device"`` keeps the loop state in device tensors and reads
-the stall flag on the host only every ``STALL_CHECK_EVERY`` steps on the
-card (every step on the CPU, where a read costs nothing); steps after
-a stall are predicated no-ops (the parent cannot change once no child
-beats it), so ``iters``, ``history`` and ``trace`` equal the reference's
-per-step loop.  ``"host"`` steps from Python, syncing the stall flag each
+the stall flag on the host only every ``STALL_CHECK_EVERY`` steps, on
+every device; steps after a stall are predicated no-ops (the parent
+cannot change once no child beats it), so ``iters``, ``history`` and
+``trace`` equal the reference's per-step loop.  ``"host"`` steps from Python, syncing the stall flag each
 step, chains a multi-resolution schedule (paper step 5) and polls a
 ``runtime.failure.FailureInjector``: an injected failure drops a shard
 from the quorum (``runtime.elastic.drop_shard``), and an empty quorum
@@ -73,7 +72,9 @@ stall counter per slot, and on CUDA one popstep launch a step for every
 live slot.  Each slot's trajectory is a function of its own start and cap
 only, so a wave's slot equals the one-restart run bit for bit.
 :func:`_submit_batched` runs a wave's loop on a worker thread, on a CUDA
-stream of its own, and :meth:`PendingBatched.finish` joins it.
+stream of its own, and :meth:`PendingBatched.finish` joins it; a blocking
+wave (:func:`_run_batched`, ``solve_many``) runs on the caller's thread
+and stream.
 """
 from __future__ import annotations
 
@@ -95,13 +96,9 @@ from repro_torch.kernels.popstep import ops as popstep_ops
 _INNERS = ("fused", "popstep", "jnp")
 
 # device driver: host reads of the stall flag (each one a synchronisation
-# on the card; on the CPU a read costs nothing, and the flag is read after
-# every step)
+# on the card; the CPU runs the same loop, so that its tests cover the
+# predicated steps)
 STALL_CHECK_EVERY = 16
-
-
-def _check_every(device: torch.device) -> int:
-    return STALL_CHECK_EVERY if device.type == "cuda" else 1
 
 # engine builds go through the keyed cache under the reference's name:
 # "engines built" in the serving metrics counts the caches named *.engine
@@ -255,8 +252,9 @@ def _block_fold(vals: torch.Tensor, ids: torch.Tensor, pop: int):
     values (module docstring): ``min`` per block (NaN wins) with the
     smallest id at that value, the blocks of each shard (one: as it is;
     several: NaN blocks dropped, lexicographic from (+inf, pop)), then
-    ``min`` across shards (NaN wins) with the smallest id at that value
-    (``pop`` when none equals it, a NaN)."""
+    across shards the rule of the kernel's ``fold_shards`` (a NaN shard
+    wins with id ``pop``, else the smallest value with the smallest id at
+    it: ``jnp.min`` over the gathered values)."""
     v = vals.amin(2)
     gid = torch.where(vals == v[..., None], ids, pop).amin(2)
     if vals.shape[1] == 1:
@@ -267,8 +265,7 @@ def _block_fold(vals: torch.Tensor, ids: torch.Tensor, pop: int):
         g2 = torch.where(keep, gid, pop)
         sv = v2.amin(1)
         sg = torch.where(v2 == sv[:, None], g2, pop).amin(1)
-    win = sv.amin()
-    return win, torch.where(sv == win, sg, pop).amin()
+    return popstep_ops._shard_fold(sv, sg, pop)
 
 
 def _stream_key(device: torch.device):
@@ -336,15 +333,11 @@ def _build_shard_step(objective, enc: Encoding, plan: _ShardPlan,
                 def fn(parents, live, ids_c=ids_c, valid=valid):
                     # each parent alone; a parent that is not live is
                     # skipped where the flag can be read without a sync
-                    skip = ([not f for f in live.tolist()]
-                            if live.device.type == "cpu"
-                            else [False] * parents.shape[0])
-                    out = [(torch.tensor(torch.inf, device=device),
-                            torch.tensor(pop, device=device)) if sk
-                           else plain_best(p, ids_c, valid)
-                           for p, sk in zip(parents, skip)]
-                    return (torch.stack([v for v, _ in out]),
-                            torch.stack([i for _, i in out]))
+                    flags = (live.tolist() if live.device.type == "cpu"
+                             else [True] * parents.shape[0])
+                    return popstep_ops.each_parent(
+                        lambda p: plain_best(p, ids_c, valid), parents,
+                        flags, pop)
             bindings[key] = fn
         return fn
 
@@ -439,7 +432,6 @@ def _predicated_run(step, bits, val, max_iters: int, stall_limit: int = 1):
     past ``iters`` repeat the final value), ``iters`` the steps taken, a
     device scalar."""
     device = val.device
-    every = _check_every(device)
     vals = val.repeat(max_iters + 1)
     stalls = torch.zeros((), dtype=torch.int32, device=device)
     iters = torch.zeros((), dtype=torch.int64, device=device)
@@ -452,7 +444,8 @@ def _predicated_run(step, bits, val, max_iters: int, stall_limit: int = 1):
         iters = iters + live.to(torch.int64)
         stalls = torch.where(live & improved, 0,
                              stalls + live.to(torch.int32))
-        if (k + 1) % every == 0 and bool(stalls >= stall_limit):
+        if (k + 1) % STALL_CHECK_EVERY == 0 and bool(
+                stalls >= stall_limit):
             break
     return bits, val, vals, iters
 
@@ -810,8 +803,6 @@ def make_distributed_engine_batched(objective, enc: Encoding,
     prepare = _build_shard_step(objective, enc, plan, inner, device,
                                 restarts=n_restarts)
 
-    every = _check_every(device)
-
     def engine(x0s, vals0, quorum_mask, active, slot_iters):
         alive = _alive(quorum_mask, n_shards)
         limit = _stall_limit(alive)
@@ -831,7 +822,7 @@ def make_distributed_engine_batched(objective, enc: Encoding,
             trace[:, k + 1] = torch.where(live, vals, trace[:, k])
             stalls = torch.where(live & improved, 0,
                                  stalls + live.to(torch.int32))
-            if ((k + 1) % every == 0 and not bool(
+            if ((k + 1) % STALL_CHECK_EVERY == 0 and not bool(
                     _batched_live(act, stalls, limit, iters, caps).any())):
                 break
         idx = torch.arange(max_iters + 1, device=device)[None, :]
@@ -868,7 +859,6 @@ def _schedule_engine_batched(objective, enc: Encoding, n_restarts: int,
     n_res, n_max = tables.n_res, tables.n_max
     t_max = n_res * max_iters + 1
     rows = torch.arange(n_restarts, device=device)
-    every = _check_every(device)
 
     def wide(bits):
         return torch.nn.functional.pad(bits, (0, n_max - bits.shape[1]))
@@ -912,7 +902,7 @@ def _schedule_engine_batched(objective, enc: Encoding, n_restarts: int,
                 best_bits = torch.where(better[:, None], wide(bits),
                                         best_bits)
                 best_res = torch.where(better, r, best_res)
-                if ((k + 1) % every == 0 and not bool(
+                if ((k + 1) % STALL_CHECK_EVERY == 0 and not bool(
                         _batched_live(act, stalls, limit, k + 1,
                                       caps).any())):
                     break
@@ -951,9 +941,9 @@ class BatchedResult(NamedTuple):
 
 class PendingBatched:
     """One wave submitted by :func:`_submit_batched`: its stepped loop runs
-    on a worker thread (on the card, on a CUDA stream of its own).
-    :meth:`finish` joins the thread, re-raises its error and assembles the
-    :class:`BatchedResult`."""
+    on a worker thread (on the card, on a CUDA stream of its own), or has
+    run already on the caller's.  :meth:`finish` joins the thread,
+    re-raises its error and assembles the :class:`BatchedResult`."""
 
     __slots__ = ("_finish",)
 
@@ -1030,10 +1020,23 @@ class _Wave(threading.Thread):
         return self.result
 
 
+def _start(run, device: torch.device, inputs: list, threaded: bool):
+    """Run a wave's loop ``run()``: on a worker thread (:class:`_Wave`)
+    when ``threaded``, else here and now.  Returns ``get(timeout)``, its
+    result."""
+    if not threaded:
+        out = run()
+        return lambda timeout=None: out
+    wave = _Wave(run, device, inputs)
+    wave.start()
+    return wave.join_result
+
+
 def _run_batched(objective, enc: Encoding, x0s, **kwargs) -> BatchedResult:
-    """The blocking shape of :func:`_submit_batched`: submit one wave and
-    wait for its result."""
-    return _submit_batched(objective, enc, x0s, **kwargs).finish()
+    """The blocking shape of :func:`_submit_batched`: one wave, its loop
+    on the caller's thread, and its result."""
+    return _submit_batched(objective, enc, x0s, threaded=False,
+                           **kwargs).finish()
 
 
 def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
@@ -1041,7 +1044,7 @@ def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
                     max_iters: int = 256, virtual_block: int = 256,
                     quorum_mask=None, res_bits: Sequence[int] | None = None,
                     active=None, slot_iters=None, inner: str | None = None,
-                    device=None) -> PendingBatched:
+                    device=None, threaded: bool = True) -> PendingBatched:
     """Batched multi-start distributed DGO: R restarts from ``x0s``
     (R, n_vars) in lockstep through one engine (one popstep launch a step
     on the card), over the resolution schedule ``res_bits`` when it names
@@ -1053,7 +1056,9 @@ def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
 
     Returns at once: the wave's loop runs on a worker thread (on the
     card, on a CUDA stream of its own, waiting for the submitting
-    stream's work) and :meth:`PendingBatched.finish` joins it."""
+    stream's work) and :meth:`PendingBatched.finish` joins it.  With
+    ``threaded=False`` the loop runs here, on the caller's stream, before
+    this returns."""
     device = resolve_device(device)
     x0 = _as_f32(x0s, device)
     if x0.ndim != 2:
@@ -1084,11 +1089,10 @@ def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
                                               slot_iters)
             return bits, vals, iters.cpu().numpy(), trace.cpu().numpy()
 
-        wave = _Wave(run, device, [x0, vals0])
-        wave.start()
+        get = _start(run, device, [x0, vals0], threaded)
 
         def finish(timeout=None) -> BatchedResult:
-            bits, vals, iters, trace = wave.join_result(timeout)
+            bits, vals, iters, trace = get(timeout)
             _use_here(bits, vals)
             return BatchedResult(
                 bits=bits, values=vals, iterations=iters,
@@ -1104,11 +1108,10 @@ def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
                 best_bits.cpu().numpy(), best_res.cpu().numpy(),
                 best_vals.cpu().numpy())
 
-    wave = _Wave(run_schedule, device, [x0, vals0])
-    wave.start()
+    get = _start(run_schedule, device, [x0, vals0], threaded)
 
     def finish_schedule(timeout=None) -> BatchedResult:
-        iters_h, trace_h, bits_h, res_h, vals_h = wave.join_result(timeout)
+        iters_h, trace_h, bits_h, res_h, vals_h = get(timeout)
         # per-restart monotone histories, truncated to the longest run and
         # padded past each restart's own end with its final best; padding
         # slots are not decoded

@@ -737,7 +737,8 @@ def _slot_result(res, bits_h, slot: int, enc0: Encoding, schedule: tuple,
 
 class PendingWave:
     """One submitted wave of :func:`submit_wave`: its stepped loop runs
-    on a worker thread (on the card, on its own CUDA stream).
+    on a worker thread (on the card, on its own CUDA stream), or has run
+    already on the caller's (``threaded=False``).
     :meth:`finalize` waits for it and assembles one :class:`SolveResult`
     per request, in input order — exactly what :func:`solve_many` returns
     (``solve_many`` is ``submit_wave`` plus an immediate ``finalize``)."""
@@ -774,7 +775,8 @@ def submit_wave(requests, *, mesh=None, pop_axes=("data",),
                 virtual_block: int = 256, max_bits: int | None = None,
                 bits_step: int = 2, pad_to: int | None = None,
                 quorum_mask=None, on_nonfinite: str = "flag",
-                contexts=None, device=None) -> PendingWave:
+                contexts=None, device=None,
+                threaded: bool = True) -> PendingWave:
     """Submit ONE wave of same-signature requests without waiting for
     its results; returns a :class:`PendingWave` whose ``finalize()``
     yields exactly what :func:`solve_many` would.
@@ -784,6 +786,8 @@ def submit_wave(requests, *, mesh=None, pop_axes=("data",),
     ``pad_to`` (the wave width, padded with inactive slots) must be
     ``>= len(requests)``.  ``contexts`` labels each request for hygiene
     errors.  ``device``: None is the card, ``"cpu"`` the plain versions.
+    ``threaded=False`` runs the wave's loop on the caller's thread (and
+    CUDA stream) before returning, as :func:`solve_many` does.
     """
     from repro_torch.core import distributed
 
@@ -824,7 +828,7 @@ def submit_wave(requests, *, mesh=None, pop_axes=("data",),
         pop_axes=tuple(pop_axes), max_iters=cap,
         virtual_block=virtual_block, quorum_mask=quorum_mask,
         res_bits=schedule, active=active, slot_iters=np.asarray(caps),
-        device=dev)
+        device=dev, threaded=threaded)
     if contexts is None:
         contexts = [f"submit_wave request {i} ({prob.name!r})"
                     for i in range(len(reqs))]
@@ -844,7 +848,9 @@ def solve_many(requests, *, mesh=None, pop_axes=("data",),
     waves of lockstep restarts with per-slot starts and caps.  ``pad_to``
     fixes the wave width: groups are cut to it and the last partial wave
     is padded with inactive slots, so every wave of a signature reuses one
-    engine.  ``pad_to=None`` runs each group at its own width.
+    engine.  ``pad_to=None`` runs each group at its own width.  Each
+    wave's loop runs on the caller's thread (``submit_wave(...,
+    threaded=False)``).
 
     Each request's ``best_x``/``best_f``/``iterations``/``trace`` equal a
     per-request ``solve(problem, Batched(restarts=1, ...), ...)`` bit for
@@ -875,7 +881,7 @@ def solve_many(requests, *, mesh=None, pop_axes=("data",),
                 bits_step=bits_step, pad_to=width,
                 quorum_mask=quorum_mask, on_nonfinite=on_nonfinite,
                 contexts=[f"solve_many request {i} ({prob.name!r})"
-                          for i in wave], device=device)
+                          for i in wave], device=device, threaded=False)
             for i, result in zip(wave, pending.finalize()):
                 results[i] = result
     return results

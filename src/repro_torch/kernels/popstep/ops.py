@@ -271,16 +271,24 @@ def population_steps_plain(objective, parents: torch.Tensor,
     whose ``live`` flag is set, so a parent's result does not depend on
     the others; ``(value, id)`` (R,) each, (+inf, population) where not
     live."""
-    flags = ([True] * parents.shape[0] if live is None
-             else [bool(f) for f in live.tolist()])
+    flags = [True] * parents.shape[0] if live is None else live.tolist()
+    return each_parent(lambda p: population_step_ids_plain(
+        objective, p, child_ids, enc, valid=valid,
+        virtual_block=virtual_block, n_shards=n_shards),
+        parents, flags, enc.population)
+
+
+def each_parent(step_one, parents: torch.Tensor, flags, sentinel: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain step of R parents: ``step_one(parent) -> (value, id)`` on
+    each parent whose entry of ``flags`` (R bools) is set, (+inf,
+    ``sentinel``) on the others; ``(value, id)`` (R,) each."""
     vals = torch.full((parents.shape[0],), torch.inf, device=parents.device)
-    ids = torch.full((parents.shape[0],), enc.population, dtype=torch.int32,
+    ids = torch.full((parents.shape[0],), sentinel, dtype=torch.int32,
                      device=parents.device)
     for r, flag in enumerate(flags):
         if flag:
-            vals[r], ids[r] = population_step_ids_plain(
-                objective, parents[r], child_ids, enc, valid=valid,
-                virtual_block=virtual_block, n_shards=n_shards)
+            vals[r], ids[r] = step_one(parents[r])
     return vals, ids
 
 

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core import solver as tsolver
 from repro_torch.core.distributed import (
-    MeshGeometry, _block_fold, _shard_plan, _shard_rows)
+    STALL_CHECK_EVERY, MeshGeometry, _block_fold, _predicated_run,
+    _shard_plan, _shard_rows)
 from repro_torch.core.encoding import Encoding as TEnc
 from repro_torch.kernels.popstep import ops as tops
 from repro_torch.runtime import FailureInjector, drop_shard
@@ -422,3 +423,29 @@ def test_restart_steps_equal_one_parent_steps():
         one(parents[0], live)
     with pytest.raises(ValueError, match=r"parent_bits must be \(5"):
         step(parents[:2], live[:2])
+
+
+@pytest.mark.parametrize("stall_limit", [1, 8])
+def test_cpu_runs_the_cards_predicated_steps(stall_limit):
+    """The CPU reads the stall counter every ``STALL_CHECK_EVERY`` steps,
+    as the card does: the steps after a stall are launched and change
+    nothing, with a full quorum (limit 1) and a degraded one (a full
+    rotation of 8)."""
+    calls = []
+
+    def step(bits, val, k):
+        calls.append(k)
+        improved = torch.tensor(k < 3)
+        return bits + 1, torch.where(improved, val - 1, val), improved
+
+    bits, val, vals, iters = _predicated_run(
+        step, torch.zeros(4, dtype=torch.int8), torch.tensor(10.0), 64,
+        stall_limit)
+    taken = 3 + stall_limit
+    assert len(calls) == STALL_CHECK_EVERY * -(-taken // STALL_CHECK_EVERY)
+    assert int(iters) == taken
+    assert torch.equal(bits, torch.full((4,), taken, dtype=torch.int8))
+    assert float(val) == 7.0
+    assert vals.tolist()[:5] == [10.0, 9.0, 8.0, 7.0, 7.0]
+    # the launched steps past the stall repeat the final value
+    assert set(vals.tolist()[4:len(calls) + 1]) == {7.0}
