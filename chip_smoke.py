@@ -143,6 +143,30 @@ Phases (any failure exits non-zero; none is caught):
              this process) on remote_sensing and rastrigin n=9, waves of
              8, pipelined and then ``--no-pipeline``: every request
              completes, the same best_f per request.
+9. train / subspace — the train path and subspace DGO, which no kernel
+             of the repository is on (the reference trains without its
+             flash kernel, which has no backward pass, and a subspace
+             objective has no device form): (a) ``launch.train``'s
+             ``run_training`` on full-width qwen2-1.5b, f32, 4 steps of
+             B = 4, S = 512, a checkpoint at step 4 in a temporary
+             directory (removed after): the weights drawn on the card by
+             the threefry twin, one leaf (``wk``) bit for bit the numpy
+             twin's; every loss finite; the first within
+             ``TRAIN_F64_BAR`` of ``lm_loss`` in float64 on the same
+             parameters and batch; the checkpoint restored bit for bit;
+             one more step from the restored state and from the state in
+             memory, the losses after it within ``TRAIN_RESUME_BAR`` (the
+             embedding's backward adds with atomics); step seconds,
+             tokens/s, peak memory, the checkpoint's bytes and seconds and
+             the free disk printed; (b) ``solve(subspace-lm:qwen2-1.5b,
+             Fused(), seed=0)`` on the card and on the CPU, following each
+             other under the tests' near-tie rule, ``materialize(best_x)``
+             finite, and ``serve --dgo --problems
+             subspace-lm:qwen2-1.5b,rastrigin:9 --ckpt-dir``, whose tuning
+             winner's checkpoint restores to ``materialize(best_x)`` bit
+             for bit; (c) ``meta_objective`` on the reference test's
+             quadratic short-train through ``Fused(max_bits=7)``, best_f
+             below 1e-2.
 
 The last lines are the card's name and power limit, a JSON line with
 every kernel's measurements (``popstep`` — its launches summed over
@@ -2792,6 +2816,314 @@ def phase_dgo(dev) -> tuple[dict, dict]:
     return kern, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the train path and subspace DGO (no kernel of the repo on it)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ("--arch", "qwen2-1.5b", "--steps", "4", "--global-batch", "4",
+              "--seq-len", "512", "--ckpt-every", "4", "--log-every", "1",
+              "--seed", "0")
+TRAIN_F64_BAR = 1e-3      # the first step's f32 loss against float64, relative
+TRAIN_RESUME_BAR = 1e-4   # a step from the restored state vs from memory
+WK_KEY = "['segments']/['seg0']/['attn']/['wk']"
+SUBSPACE = "subspace-lm:qwen2-1.5b"
+SUBSPACE_SERVE_ARGS = ("--dgo", "--problems", f"{SUBSPACE},rastrigin:9",
+                       "--restarts", "8", "--waves", "1", "--no-pipeline")
+META_BAR = 1e-2           # the reference test's bar on best_f
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _stacked(leaf):
+    return leaf.stacked() if hasattr(leaf, "stacked") else leaf
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.core.tree import entries
+
+    ea, eb = list(entries(a)), list(entries(b))
+    return [k for k, _ in ea] == [k for k, _ in eb] and all(
+        torch.equal(_stacked(x), _stacked(y))
+        for (_, x), (_, y) in zip(ea, eb))
+
+
+def check_init_leaf(params, key) -> None:
+    """The device twin's ``wk`` (stacked, 28 x 1536 x 2 x 128) against the
+    numpy twin's draw of the same leaf, bit for bit."""
+    import math
+
+    from repro_torch.core import prng
+    from repro_torch.core.tree import entries
+
+    leaves = list(entries(params.tree()))      # the reference's order
+    i = [k for k, _ in leaves].index(WK_KEY)
+    got = leaves[i][1].stacked().cpu().numpy()
+    std = np.float32(1.0 / math.sqrt(got.shape[0]))
+    want = std * prng.normal(prng.fold_in(key, i), got.shape)
+    same = np.array_equal(got.view(np.int32), want.view(np.int32))
+    print(f"[train] init leaf {WK_KEY} {tuple(got.shape)} (index {i}) "
+          f"through the device twin == the numpy twin bit for bit: {same}")
+    check(same, f"init leaf {WK_KEY}: the device twin's draw differs from "
+                f"the numpy twin's")
+
+
+def phase_train(dev) -> dict:
+    """9a: ``run_training`` at full width (f32, 4 steps, B = 4, S = 512,
+    one checkpoint at step 4 in a temporary directory, removed after)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models.lm import init_model, lm_loss, n_params
+    from repro_torch.optim.gradient import AdamWConfig
+
+    args = train.build_argparser().parse_args(list(TRAIN_ARGV))
+    arch = get_arch(args.arch)
+    if args.reduced:            # a rehearsal off the card
+        arch = reduced(arch)
+    key = prng.PRNGKey(args.seed)
+    data = SyntheticTokenPipeline(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=args.seq_len,
+        global_batch=args.global_batch, seed=args.seed), device=dev)
+    batches = [data.batch_at(k) for k in (0, args.steps, args.steps + 1)]
+    data.close()
+
+    t0 = time.perf_counter()
+    params = init_model(arch, key, device=dev)
+    _sync(dev)
+    print(f"[train] init_model(qwen2-1.5b, PRNGKey(0)) through the device "
+          f"twin: {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in params.parameters()):,} parameters")
+    check_init_leaf(params, key)
+    with torch.no_grad():
+        l64 = float(lm_loss(params, arch, batches[0], dtype=torch.float64))
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        args.ckpt_dir = str(tmp)
+        free = shutil.disk_usage(tmp).free
+        print(f"[train] free disk at {tmp}: {free / 1e9:.2f} GB (one "
+              f"checkpoint: ~{3 * n_params(arch) * 4 / 1e9:.2f} GB)")
+        out = train.run_training(args, device=dev, keep_state=True)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        losses = out["losses"]
+        tokens = args.global_batch * args.seq_len
+        warm = out["step_s"][1:] or out["step_s"]
+        print(f"[train] losses {losses}; step seconds {out['step_s']}; "
+              f"{tokens / (sum(warm) / len(warm)):.1f} tokens/s after the "
+              f"first step; peak device memory {peak / 2**30:.2f} GiB")
+        check(len(losses) == args.steps
+              and all(np.isfinite(v) for v in losses),
+              f"trainer losses {losses}")
+        rel64 = abs(losses[0] - l64) / abs(l64)
+        print(f"[train] first step: f32 loss {losses[0]!r} vs float64 "
+              f"{l64!r} on the same parameters and batch: relative "
+              f"{rel64:.3e} (bar {TRAIN_F64_BAR})")
+        check(rel64 <= TRAIN_F64_BAR, f"first loss {losses[0]} vs float64 "
+                                      f"{l64}: {rel64:.3e}")
+        step_dir = tmp / f"step_{args.steps:08d}"
+        nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        print(f"[train] checkpoint {step_dir.name}: {nbytes / 1e9:.3f} GB "
+              f"written in {out['ckpt_s'][0]:.2f} s "
+              f"({nbytes / 1e9 / out['ckpt_s'][0]:.3f} GB/s)")
+        state = out.pop("state")
+        t0 = time.perf_counter()
+        back = restore_checkpoint(tmp, args.steps, state)
+        _sync(dev)
+        t_restore = time.perf_counter() - t0
+        same = _trees_equal(back, state)
+        print(f"[train] restored in {t_restore:.2f} s; equal to the trained "
+              f"state bit for bit: {same}")
+        check(same, "the restored checkpoint differs from the trained state")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
+                          total_steps=args.steps, weight_decay=0.01)
+    after = []
+    for name in ("memory", "restored"):
+        src = state if name == "memory" else back
+        p1, _, loss = train.train_step(*src, batches[1], arch,
+                                       torch.float32, opt_cfg)
+        if name == "memory":
+            del state, src
+        else:
+            del back, src
+        with torch.no_grad():
+            after.append(float(lm_loss(p1, arch, batches[2],
+                                       dtype=torch.float32)))
+        del p1
+        print(f"[train] one more step from the state in {name}: step loss "
+              f"{float(loss)!r}, loss after it {after[-1]!r}")
+    rel = abs(after[0] - after[1]) / abs(after[0])
+    print(f"[train] after the extra step, memory vs restored: relative "
+          f"{rel:.3e} (bar {TRAIN_RESUME_BAR})")
+    check(rel <= TRAIN_RESUME_BAR, f"the extra step from the restored state "
+                                   f"parts from memory's: {after}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": out["step_s"], "peak": peak,
+            "ckpt_bytes": nbytes, "ckpt_s": out["ckpt_s"][0],
+            "restore_s": t_restore, "f64_rel": rel64, "resume_rel": rel}
+
+
+def runs_follow(h_a, h_b, atol=1e-5, rtol=1e-5) -> str:
+    """The near-tie rule of the port's tests: "same" when two best-so-far
+    histories agree step for step within the bar, "near-tie" when they part
+    only at a step within the bar of the last and go on through the same
+    values; anything else fails."""
+    def close(a, b):
+        return np.isclose(a, b, rtol=rtol, atol=atol)
+
+    def plateaus(h):
+        out = [h[0]]
+        for v in h[1:]:
+            if not close(v, out[-1]):
+                out.append(v)
+        return np.asarray(out)
+
+    h_a, h_b = np.asarray(h_a, np.float64), np.asarray(h_b, np.float64)
+    if len(h_a) == len(h_b) and close(h_a, h_b).all():
+        return "same"
+    p_a, p_b = plateaus(h_a), plateaus(h_b)
+    check(len(p_a) == len(p_b) and bool(close(p_a, p_b).all()),
+          f"the runs part beyond a near-tie: {p_a} vs {p_b}")
+    check(any(np.any((np.diff(h) < 0) & close(h[1:], h[:-1]))
+              for h in (h_a, h_b)), "the runs part without a near-tie")
+    return "near-tie"
+
+
+def phase_subspace(dev) -> dict:
+    """9b: ``solve(subspace-lm:qwen2-1.5b, Fused(), seed=0)`` on the card
+    and on the CPU; ``materialize(best_x)``; ``serve --dgo`` with the
+    tuning problem and ``--ckpt-dir``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.solver import Fused, Problem, solve
+    from repro_torch.core.tree import entries
+    from repro_torch.kernels.popstep import ops
+    from repro_torch.launch import serve
+
+    prob = Problem.get(SUBSPACE)
+    runs = {}
+    for where in ("card", "cpu"):
+        d = None if (where == "card" and dev.type == "cuda") else "cpu"
+        ops.launches = ops.fold_launches = 0
+        t0 = time.perf_counter()
+        res = solve(prob, Fused(), seed=0, device=d)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        ev = res.extras["evaluations"]
+        runs[where] = res
+        print(f"[subspace] Fused() on the {where}: best_f "
+              f"{float(res.best_f)!r}, {res.iterations} steps, {ev} "
+              f"evaluations, {wall:.2f} s wall, {ev / wall:.1f} "
+              f"evaluations/s (directions and state built in the run); "
+              f"popstep launches {ops.launches} (the plain tensor step)")
+        check(ops.launches == ops.fold_launches == 0,
+              "a subspace objective reached the popstep kernel")
+    how = runs_follow(runs["card"].trace, runs["cpu"].trace)
+    print(f"[subspace] card vs CPU: {how}")
+    check(np.isclose(float(runs["card"].best_f), float(runs["cpu"].best_f),
+                     rtol=1e-5, atol=1e-5), "card and CPU best_f differ")
+    winner = prob.materialize(runs["card"].best_x)
+    finite = all(bool(torch.isfinite(_stacked(v)).all())
+                 for _, v in entries(winner))
+    print(f"[subspace] materialize(best_x): "
+          f"{sum(_stacked(v).numel() for _, v in entries(winner)):,} "
+          f"parameters, all finite: {finite}")
+    check(finite, "materialize(best_x) is not finite")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+    seen = {}
+    real = serve._persist_winners
+
+    def persist(ckpt_dir, handles, submitted):
+        seen["handles"] = handles
+        return real(ckpt_dir, handles, submitted)
+
+    serve._persist_winners = persist
+    try:
+        args = serve.build_parser().parse_args(
+            list(SUBSPACE_SERVE_ARGS) + ["--ckpt-dir", str(tmp)])
+        t0 = time.perf_counter()
+        report = serve.serve_dgo(args, device=None if dev.type == "cuda"
+                                 else dev)
+        wall = time.perf_counter() - t0
+        want = args.restarts * args.waves
+        check(report["completed"] == want and report["failed"] == 0,
+              f"serve --dgo: {report['completed']} of {want} completed")
+        tuned = [h for h in seen["handles"]
+                 if h.request.problem.name == SUBSPACE]
+        best = min(tuned, key=lambda h: float(h.result().best_f))
+        check(len(report["checkpoints"]) == 1,
+              f"checkpoints {report['checkpoints']}")
+        path = Path(report["checkpoints"][0])
+        params = best.request.problem.materialize(best.result().best_x)
+        back = restore_checkpoint(path.parent, int(path.name[5:]), params)
+        same = _trees_equal(back, params)
+        print(f"[subspace] serve --dgo {' '.join(SUBSPACE_SERVE_ARGS[1:])} "
+              f"--ckpt-dir: {report['completed']} requests in {wall:.2f} s "
+              f"({len(tuned)} tuning), winner best_f "
+              f"{float(best.result().best_f)!r}; {path.name} restores to "
+              f"materialize(best_x) bit for bit: {same}")
+        check(same, "the tuning winner's checkpoint differs from "
+                    "materialize(best_x)")
+    finally:
+        serve._persist_winners = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"card": runs["card"], "cpu": runs["cpu"]}
+
+
+def phase_meta(dev) -> float:
+    """9c: the reference test's quadratic short-train through
+    ``Fused(max_bits=7)`` on the card."""
+    import torch
+
+    from repro_torch.core.meta import HyperBox, meta_objective
+    from repro_torch.core.solver import Fused, solve
+
+    def short_train(hypers):
+        lr = hypers["lr"]
+        w = torch.full_like(lr, 4.0)
+        for _ in range(30):
+            w = w - lr * 2 * w
+        return w * w
+
+    t0 = time.perf_counter()
+    res = solve(meta_objective(short_train, HyperBox(bits=5)),
+                Fused(max_bits=7), seed=0,
+                device=None if dev.type == "cuda" else dev)
+    wall = time.perf_counter() - t0
+    print(f"[meta] meta_objective through Fused(max_bits=7): best_f "
+          f"{float(res.best_f)!r} (bar {META_BAR}), {res.iterations} "
+          f"steps, {wall:.2f} s")
+    check(float(res.best_f) < META_BAR, f"meta best_f {float(res.best_f)}")
+    return float(res.best_f)
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2830,6 +3162,9 @@ def main() -> None:
     timing_for("popstep")
     restarts, dgo_paths = phase_dgo(dev)
     by_path.update(dgo_paths)
+    phase_train(dev)
+    phase_subspace(dev)
+    phase_meta(dev)
     n_launch = sum(n for n, _ in by_path.values())
     n_fold = sum(f for _, f in by_path.values())
     print(f"[done] {time.perf_counter() - t0:.1f} s")

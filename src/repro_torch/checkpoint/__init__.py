@@ -1,0 +1,9 @@
+"""Fault-tolerant checkpointing of the port (the twin of
+``repro.checkpoint``)."""
+from repro_torch.checkpoint.store import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]

@@ -1,8 +1,11 @@
 """Objective functions: the paper's benchmark, test functions and ANN losses.
 
-The nine registry objectives of ``repro.core.objectives`` (the model-zoo
-``subspace-lm:*`` family waits for the port of the zoo), each written
-batched: ``fn`` maps a ``(B, n_vars)`` float32 tensor to ``(B,)``.
+The registry objectives of ``repro.core.objectives``, each written
+batched: ``fn`` maps a ``(B, n_vars)`` float32 tensor to ``(B,)``.  The
+model-zoo tuning family ``subspace-lm:<arch>`` (``core.subspace``) is
+registered for every architecture the port has (``configs.REGISTRY``);
+a ``subspace-lm:`` name of another reference architecture raises
+``NotImplementedError``.
 
 Every registry objective also carries its *kernel form*
 (:class:`KernelForm`): the id under which ``kernels/popstep/csrc/
@@ -53,6 +56,13 @@ class Objective:
     f_opt: float | None                          # known global optimum value
     tol: float | None                            # |f - f_opt| counted as success
     kernel: KernelForm | None = None             # device form (registry only)
+    # semantic identity: two Objectives with equal non-None signatures are
+    # interchangeable, so engine caches and serving buckets may key on it
+    # instead of the fn closure (the subspace-tuning family sets it)
+    signature: tuple | None = None
+    # stateful objectives (subspace tuning) map a search point back to
+    # their underlying state (the winner's model parameters)
+    materialize: Callable[[torch.Tensor], object] | None = None
 
 
 def _on_device(consts: tuple) -> Callable:
@@ -277,18 +287,51 @@ _REGISTRY: dict[str, tuple[Callable[..., Objective], bool]] = {
     "remote_sensing": (lambda **kw: remote_sensing_objective(**kw), _FIXED),
 }
 
+_SUBSPACE = "subspace-lm:"
+
+
+_zoo_registered = False
+
+
+def _registry() -> dict:
+    """The registry, with one ``subspace-lm:<arch>`` entry per
+    architecture of the port's zoo (``configs.REGISTRY``): a subspace-DGO
+    tuning objective over the reduced model
+    (``core.subspace.lm_tuning_objective``).  Those entries are added on
+    first use: the zoo's modules import ``core``, so ``core`` cannot
+    import them while it is being imported."""
+    global _zoo_registered
+    if not _zoo_registered:
+        from repro_torch.configs import ARCH_NAMES
+        from repro_torch.core.subspace import lm_tuning_factory
+
+        for arch_name in ARCH_NAMES:
+            _REGISTRY[_SUBSPACE + arch_name] = (
+                lm_tuning_factory(arch_name), _FIXED)
+        _zoo_registered = True
+    return _REGISTRY
+
+
+def _unknown(name: str) -> Exception:
+    if name.startswith(_SUBSPACE):
+        return NotImplementedError(
+            f"objective {name!r}: the port's zoo tunes "
+            f"{', '.join(k for k in names() if k.startswith(_SUBSPACE))}; "
+            f"the other architectures are ROADMAP queue 1 #8")
+    return ValueError(f"unknown objective {name!r}; "
+                      f"valid names: {', '.join(names())}")
+
 
 def names() -> tuple[str, ...]:
     """Registered objective names, sorted."""
-    return tuple(sorted(_REGISTRY))
+    return tuple(sorted(_registry()))
 
 
 def accepts_n(name: str) -> bool:
     """Whether ``get(name, n=...)`` honours a variable count."""
-    if name not in _REGISTRY:
-        raise ValueError(f"unknown objective {name!r}; "
-                         f"valid names: {', '.join(names())}")
-    return _REGISTRY[name][1]
+    if name not in _registry():
+        raise _unknown(name)
+    return _registry()[name][1]
 
 
 def _factory_defaults(name: str) -> tuple:
@@ -302,7 +345,7 @@ def _introspect_defaults(name: str) -> tuple:
     return tuple(
         (pname, p.default)
         for pname, p in inspect.signature(
-            _REGISTRY[name][0]).parameters.items()
+            _registry()[name][0]).parameters.items()
         if p.kind not in (inspect.Parameter.VAR_POSITIONAL,
                           inspect.Parameter.VAR_KEYWORD)
         and p.default is not inspect.Parameter.empty)
@@ -325,16 +368,15 @@ def get(name: str, n: int | None = None, **kwargs) -> Objective:
 
     ``n`` sets the variable count for dimensioned families; passing it
     for a fixed-dimensional objective is an error."""
-    if name not in _REGISTRY:
-        raise ValueError(f"unknown objective {name!r}; "
-                         f"valid names: {', '.join(names())}")
-    factory, dimensioned = _REGISTRY[name]
+    if name not in _registry():
+        raise _unknown(name)
+    factory, dimensioned = _registry()[name]
     if n is not None:
         if not dimensioned:
             raise ValueError(
                 f"objective {name!r} has a fixed dimensionality; omit n "
                 f"(dimensioned objectives: "
-                f"{', '.join(k for k in names() if _REGISTRY[k][1])})")
+                f"{', '.join(k for k in names() if _registry()[k][1])})")
         kwargs["n"] = n
     return factory(**kwargs)
 

@@ -108,8 +108,11 @@ class Problem:
     sequential loop's).  ``kernel`` is the objective's device form for
     the popstep kernel; only registry objectives (:meth:`get`) carry one.
     ``signature`` is a hashable semantic identity that
-    :func:`engine_signature` keys on in place of ``fn`` (the reference's
-    field; None for registry problems).
+    :func:`engine_signature` keys on in place of ``fn`` (set by the
+    ``subspace-lm:*`` tuning family, None for the other registry
+    problems); ``materialize`` maps a winning point back to the
+    objective's state (a tuning problem's model parameters,
+    ``core.subspace.materialize_winner``).
     """
 
     fn: Callable[[Any], Any]
@@ -121,6 +124,7 @@ class Problem:
     kernel: KernelForm | None = None
     kind: str | None = None      # "torch" | "numpy" | None = detect
     signature: tuple | None = None
+    materialize: Callable[[Any], Any] | None = None
 
     def __post_init__(self):
         if self.kind is None:
@@ -137,7 +141,8 @@ class Problem:
     def from_objective(cls, obj: Objective) -> "Problem":
         return cls(fn=obj.fn, encoding=obj.encoding, name=obj.name,
                    f_opt=obj.f_opt, tol=obj.tol, batched=True,
-                   kernel=obj.kernel, kind="torch")
+                   kernel=obj.kernel, kind="torch",
+                   signature=obj.signature, materialize=obj.materialize)
 
     @classmethod
     def get(cls, name: str, n: int | None = None, **kwargs) -> "Problem":
@@ -163,7 +168,8 @@ class Problem:
             else:
                 fn = self.fn if self.batched else torch.vmap(self.fn)
             obj = Objective(self.name, fn, self.encoding, self.f_opt,
-                            self.tol, self.kernel)
+                            self.tol, self.kernel, self.signature,
+                            self.materialize)
             object.__setattr__(self, "_objective", obj)
         return obj
 

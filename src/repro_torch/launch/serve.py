@@ -24,9 +24,16 @@ wave of the batched engine (one popstep launch a step on the card); each
 request's result is what its own solve would return.  Serving is
 pipelined by default (``serving.PipelinedScheduler``, ``--max-in-flight``
 waves running at once); ``--no-pipeline`` uses the synchronous scheduler.
-Not ported: ``--ckpt-dir`` (the checkpoint store, ROADMAP queue 1 #8)
-raises ``NotImplementedError``, and so does a ``subspace-lm:*`` problem
-(the zoo as a DGO workload, #8).
+
+Model-zoo tuning is served through the same loop: ``subspace-lm:<arch>``
+names (``--problems subspace-lm:qwen2-1.5b,rastrigin:9``) are
+subspace-DGO tuning problems over the reduced zoo model
+(``core.subspace``), whose requests bucket by their semantic (arch, d,
+bits, ...) signature; they take the plain tensor step (the popstep
+kernel has no form of them).  ``--ckpt-dir`` persists each tuning
+problem's winner parameters through the checkpoint store
+(``checkpoint.store``, the reference's file layout), one directory per
+problem (``subspace-lm__qwen2-1.5b/step_<requests>``).
 
 Both run on the CUDA card (``serve_lm(..., device="cpu")`` and
 ``serve_dgo(args, device="cpu")`` run the plain PyTorch versions).
@@ -151,10 +158,6 @@ def _parse_problem_specs(args) -> list:
                          "(want comma-separated name[:n_vars])")
     problems = []
     for name, n in specs:
-        if name.startswith("subspace-lm"):
-            raise NotImplementedError(
-                f"--problems {name!r}: the model zoo as a DGO workload is "
-                f"not ported yet (ROADMAP queue 1 #8)")
         if n is not None and not 1 <= n <= MAX_CLI_N_VARS:
             raise SystemExit(
                 f"--problems: n_vars for {name!r} must be in "
@@ -196,7 +199,39 @@ def _build_scheduler(args, problems, device=None):
     return sched
 
 
-def _report(sched, problems, best: float, wall_s: float) -> dict:
+def _persist_winners(ckpt_dir: str, handles, submitted: int) -> list[str]:
+    """Persist the best materializable result per problem: the winning z
+    of each ``subspace-lm:*`` tuning problem mapped back to the model's
+    parameters (``Problem.materialize``) and written through the atomic
+    keep-k checkpoint store at step ``submitted``.  Returns the checkpoint
+    paths written."""
+    from pathlib import Path
+
+    from repro_torch.checkpoint.store import save_checkpoint
+
+    winners: dict[str, tuple[float, object, object]] = {}
+    for h in handles:
+        if not (h.done() and h.error is None):
+            continue
+        prob = h.request.problem
+        if getattr(prob, "materialize", None) is None:
+            continue
+        res = h.result()
+        f = float(res.best_f)
+        if prob.name not in winners or f < winners[prob.name][0]:
+            winners[prob.name] = (f, prob, res)
+    paths = []
+    for name, (_, prob, res) in sorted(winners.items()):
+        params = prob.materialize(res.best_x)
+        sub = name.replace(":", "__").replace("/", "__")
+        path = save_checkpoint(Path(ckpt_dir) / sub, step=submitted,
+                               tree=params)
+        paths.append(str(path))
+    return paths
+
+
+def _report(sched, problems, best: float, wall_s: float,
+            checkpoints: list[str] | None = None) -> dict:
     from repro_torch.core import cache
 
     m = sched.metrics()
@@ -227,7 +262,7 @@ def _report(sched, problems, best: float, wall_s: float) -> dict:
         "cache_hits": eng["hits"],
         "cache_evictions": m["cache_evictions"],
         "best_value": None if best == float("inf") else best,
-        "checkpoints": [],
+        "checkpoints": checkpoints or [],
     }
     if "fault_injections" in m:
         out["fault_injections"] = m["fault_injections"]
@@ -314,10 +349,6 @@ def serve_dgo(args, device=None) -> dict:
     service progress.  Closed loop (``--waves``): ``restarts * waves``
     requests up front, then drain.  ``device``: None is the card, ``"cpu"``
     the plain versions.  Returns the report (the summary of a sweep)."""
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir needs the checkpoint store (checkpoint/store.py), "
-            "not ported yet (ROADMAP queue 1 #8)")
     if args.rps is not None and args.rps <= 0:
         raise SystemExit(f"--rps must be > 0, got {args.rps}")
     if (args.rps is not None or args.sweep_rps) and args.duration <= 0:
@@ -357,9 +388,11 @@ def serve_dgo(args, device=None) -> dict:
         print(json.dumps(summary))
         return summary
 
-    sched, handles, wall_s, _ = _run_serving_loop(args, problems, args.rps,
-                                                  device)
-    return _report(sched, problems, _best(handles), wall_s)
+    sched, handles, wall_s, submitted = _run_serving_loop(
+        args, problems, args.rps, device)
+    checkpoints = (_persist_winners(args.ckpt_dir, handles, submitted)
+                   if args.ckpt_dir else None)
+    return _report(sched, problems, _best(handles), wall_s, checkpoints)
 
 
 def _best(handles) -> float:
@@ -430,8 +463,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fold a resolution schedule up to this many bits "
                          "into every dispatch (None = fixed resolution)")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="persist tuning winners (needs the checkpoint "
-                         "store: not ported yet, raises)")
+                    help="persist each subspace-lm tuning problem's winner "
+                         "parameters through the checkpoint store")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

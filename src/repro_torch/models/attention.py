@@ -112,7 +112,8 @@ def sdpa(cfg: AttnConfig, q, k, v, q_pos, k_pos, window: int | None = None):
         s = torch.einsum("bqhgk,bshk->bhgqs", qb, k) * cfg.scale
         mask = _mask(cfg, q_pos[c0:c0 + cfg.chunk_q], k_pos, window)
         s = s.masked_fill(~mask, NEG_INF)
-        w = torch.softmax(s.float(), dim=-1).to(q.dtype)
+        w = torch.softmax(s.to(torch.promote_types(s.dtype, torch.float32)),
+                          dim=-1).to(q.dtype)
         out.append(torch.einsum("bhgqs,bshk->bqhgk", w, v))
     return torch.cat(out, dim=1).reshape(b, sq, hq, hd)
 

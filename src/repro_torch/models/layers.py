@@ -3,9 +3,12 @@ twins of ``repro.models.layers``.
 
 A module describes its parameters as a tree of :class:`ParamSpec`s;
 :func:`init_params` materialises the tree as a :class:`Params` module
-whose leaves are tensors.  The layer functions take such a tree (or any
-mapping with the same keys) and tensors in the reference's layouts.
-``layernorm`` and ``gelu_mlp`` are not ported yet (ROADMAP queue 1 #8).
+whose leaves are tensors, either from a ``torch.Generator`` or, as the
+reference does, from a JAX key through the threefry twin.  The layer
+functions take such a tree (or any mapping with the same keys, such as
+:meth:`Params.tree`'s plain dicts) and tensors in the reference's
+layouts.  ``layernorm`` and ``gelu_mlp`` are not ported yet (ROADMAP
+queue 1 #8).
 """
 from __future__ import annotations
 
@@ -14,6 +17,9 @@ import math
 
 import torch
 from torch import nn
+
+from repro_torch.core import prng
+from repro_torch.core.tree import Layers, entries, rebuild
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +52,16 @@ class Params(nn.Module):
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
 
+    def tree(self) -> dict:
+        """The parameters as plain nested dicts (and per-layer lists) of
+        their tensors, detached, sharing storage: the train path's
+        parameter tree."""
+        out: dict = {k: p.detach() for k, p in self._parameters.items()}
+        for k, m in self._modules.items():
+            out[k] = ([t.tree() for t in m] if isinstance(m, nn.ModuleList)
+                      else m.tree())
+        return out
+
 
 def _leaves(spec_tree):
     """The tree's ParamSpecs in a fixed depth-first order."""
@@ -67,30 +83,59 @@ def _map(spec_tree, fn):
     return {k: _map(t, fn) for k, t in spec_tree.items()}
 
 
-def init_params(spec_tree, generator: torch.Generator,
-                dtype=torch.float32) -> Params:
-    """Materialise a ParamSpec tree on the generator's device: zeros for
-    biases, ones for norms, normal draws from ``generator`` (leaf by leaf,
-    depth first) for the rest, with std ``scale``, 0.02 for embeddings,
-    else 1/sqrt(fan-in) (a matrix's ``shape[0]``)."""
-    dev = generator.device
+def _std(spec: ParamSpec) -> float:
+    """The normal draw's std: ``scale``, 0.02 for embeddings, else
+    1/sqrt(fan-in) (a matrix's ``shape[0]``)."""
+    if spec.scale is not None:
+        return spec.scale
+    if spec.init == "embed":
+        return 0.02
+    fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
+    return 1.0 / math.sqrt(max(fan_in, 1))
 
-    def make(spec: ParamSpec) -> torch.Tensor:
+
+def stacked_spec(like) -> ParamSpec:
+    """The reference's spec of a leaf: a layer list's per-layer specs
+    (a :class:`repro_torch.core.tree.Layers`) as one spec with the layer
+    count as a leading axis; a spec as itself."""
+    if isinstance(like, Layers):
+        s = like[0]
+        return ParamSpec((len(like),) + s.shape, s.init, s.scale)
+    return like
+
+
+def init_params(spec_tree, source, dtype=torch.float32,
+                device=None) -> Params:
+    """Materialise a ParamSpec tree: zeros for biases, ones for norms,
+    ``std`` times normal draws for the rest (std: ``scale``, 0.02 for
+    embeddings, else 1/sqrt(fan-in), a matrix's ``shape[0]``).
+
+    ``source`` is either a ``torch.Generator`` (draws from it leaf by
+    leaf, depth first, per-layer shapes, on the generator's device;
+    ``device`` is ignored) or a JAX key (a ``(2,)`` uint32 array), which
+    gives the reference's ``init_params`` weights: leaf ``i`` of the
+    reference's flatten order (layers stacked, :func:`stacked_spec`) is
+    ``std * normal(fold_in(key, i))`` with ``std`` taken from the stacked
+    shape, drawn on ``device`` by the threefry twin
+    (:func:`repro_torch.core.prng.normal_torch`) and split back into
+    per-layer tensors (views of the stacked draw)."""
+    def make(spec: ParamSpec, normal, dev) -> torch.Tensor:
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dtype, device=dev)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=dev)
-        if spec.scale is not None:
-            std = spec.scale
-        elif spec.init == "embed":
-            std = 0.02
-        else:  # fan-in
-            fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
-            std = 1.0 / math.sqrt(max(fan_in, 1))
-        draw = torch.randn(spec.shape, generator=generator, device=dev)
-        return (std * draw).to(dtype)
+        return (_std(spec) * normal(spec.shape)).to(dtype)
 
-    return Params(_map(spec_tree, make))
+    if isinstance(source, torch.Generator):
+        dev = source.device
+        return Params(_map(spec_tree, lambda spec: make(
+            spec, lambda shape: torch.randn(shape, generator=source,
+                                            device=dev), dev)))
+    key = prng.as_key(source)
+    index = {k: i for i, (k, _) in enumerate(entries(spec_tree))}
+    return Params(rebuild(spec_tree, lambda k, like: make(
+        stacked_spec(like), lambda shape: prng.normal_torch(
+            prng.fold_in(key, index[k]), shape, device), device)))
 
 
 def param_count(spec_tree) -> int:
@@ -106,8 +151,9 @@ def rmsnorm_spec(d: int):
 
 
 def rmsnorm(p, x, eps: float = 1e-6):
+    """In float32, or float64 for a float64 ``x``."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = x.to(torch.promote_types(dt, torch.float32))
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * p["scale"].to(dt)
 
@@ -165,12 +211,14 @@ def rope_frequencies(head_dim: int, theta: float = 10_000.0,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10_000.0) -> torch.Tensor:
     """x: (..., S, H, hd); positions: (..., S) integers.  Half-split
-    convention, angles in float32."""
+    convention, angles in float32; the rotation in float32, or float64
+    for a float64 ``x``."""
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)             # (hd/2,)
     angles = positions[..., None].float() * freqs             # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = x.to(torch.promote_types(x.dtype, torch.float32)).chunk(
+        2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

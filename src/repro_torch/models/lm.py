@@ -7,16 +7,26 @@ each segment as a list of per-layer :class:`~repro_torch.models.layers.
 Params` modules and loops over them in Python.
 
 Paths:
+  lm_loss(params, arch, batch)                -> scalar (train objective)
   lm_prefill(params, arch, batch, cache_len)  -> (logits_last, cache)
   lm_decode(params, arch, token, cache)       -> (logits, cache)
+
+The vocabulary readout of ``lm_loss`` is sequence-chunked
+(:func:`chunked_ce`): the (B, S, V) logits tensor is never materialised.
+With ``arch.remat`` each layer, and always each readout chunk, runs under
+``torch.utils.checkpoint`` (non-reentrant) when gradients are taken: its
+activations are recomputed in the backward pass, as ``jax.checkpoint``
+does in the reference.  ``params`` may be a :class:`~repro_torch.models.
+layers.Params` module or its plain tree (:meth:`Params.tree`).
 
 Where ``arch.window`` is None every attention layer is global and is
 given no window, so ``use_flash_attention`` routes its full-sequence
 attention through the CUDA kernel.  (The reference passes each layer a
 window of 0 in that case, which keeps its Pallas kernel off every
-model's train and serve path: ROADMAP queue 3.)  ``lm_loss``, the
-chunked cross-entropy and the other block kinds are not ported yet
-(ROADMAP queue 1 #8).
+model's train and serve path: ROADMAP queue 3.)  The kernel has no
+backward pass, so training keeps ``use_flash_attention=False`` (the
+reference's default, and its trainer's).  MTP, frontends, the encoder
+and the other block kinds are not ported yet (ROADMAP queue 1 #8).
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.distributed import resolve_device
 from repro_torch.models import blocks as blk
@@ -150,10 +162,17 @@ def model_spec(arch: ArchConfig) -> dict:
     return spec
 
 
-def init_model(arch: ArchConfig, generator: torch.Generator,
-               dtype=torch.float32) -> Params:
-    """Random weights on ``generator``'s device, drawn from it."""
-    return init_params(model_spec(arch), generator, dtype)
+def init_model(arch: ArchConfig, source, dtype=torch.float32,
+               device=None) -> Params:
+    """Random weights.  ``source`` a ``torch.Generator``: drawn from it on
+    its device.  ``source`` a JAX key (``(2,)`` uint32, e.g.
+    ``prng.PRNGKey(seed)``): the reference's ``init_model(arch, key)``
+    weights, drawn on ``device`` by the threefry twin (None is the CUDA
+    card, ``RuntimeError`` without one; ``"cpu"`` the CPU)."""
+    if isinstance(source, torch.Generator):
+        return init_params(model_spec(arch), source, dtype)
+    return init_params(model_spec(arch), source, dtype,
+                       resolve_device(device))
 
 
 def n_params(arch: ArchConfig) -> int:
@@ -183,6 +202,87 @@ def load_reference_params(tree, device=None) -> Params:
             first = next(iter(first.values()))
         out["segments"][name] = [convert(seg, i) for i in range(len(first))]
     return Params(out)
+
+
+# ---------------------------------------------------------------------------
+# hidden-state forward (train path)
+# ---------------------------------------------------------------------------
+
+def _grad_checkpoint(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    gradients are being taken."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def forward_hidden(params, arch: ArchConfig, x):
+    """(B, S, D) -> (B, S, D) through all segments and the final norm.
+    Returns (h, aux); ``aux`` (the MoE balance loss) is 0.0 for the dense
+    blocks ported."""
+    aux_total = 0.0
+    layer_idx = 0
+    for seg in build_plan(arch):
+        wins = layer_windows(arch, layer_idx, seg.n)
+        for pl, w in zip(params["segments"][seg.name], wins):
+            def body(xc, pl=pl, w=w):
+                return blk.attn_block_train(pl, arch, xc, window=w)[0]
+            x = _grad_checkpoint(body, x) if arch.remat else body(x)
+        layer_idx += seg.n
+    return blk._norm(arch, params["final_norm"], x), aux_total
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (never materialises (B, S, V))
+# ---------------------------------------------------------------------------
+
+def chunked_ce(h, table, labels, chunk: int, transpose: bool):
+    """h: (B, S, D); labels: (B, S) with -1 = ignore.  Mean CE over the
+    valid labels.  ``S`` is padded up to a multiple of the chunk with
+    label -1; each chunk's logits and ``logsumexp`` are float32 (float64
+    for a float64 ``h``)."""
+    b, s, _ = h.shape
+    cs = min(chunk, s)
+    nc = -(-s // cs)
+    if nc * cs != s:
+        pad = nc * cs - s
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    ct = torch.promote_types(h.dtype, torch.float32)
+
+    def blk_fn(hb, lb):
+        t = table.to(ct)
+        logits = hb.to(ct) @ (t.T if transpose else t)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lb.clamp_min(0)[..., None])[..., 0]
+        valid = lb >= 0
+        return torch.where(valid, logz - ll, 0.0).sum(), valid.sum()
+
+    total, count = 0.0, 0
+    for c in range(nc):
+        loss_c, n_c = _grad_checkpoint(blk_fn, h[:, c * cs:(c + 1) * cs],
+                                       labels[:, c * cs:(c + 1) * cs])
+        total, count = total + loss_c, count + n_c
+    return total / torch.clamp_min(count, 1).to(ct)
+
+
+# ---------------------------------------------------------------------------
+# training objective
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, arch: ArchConfig, batch, dtype=torch.bfloat16):
+    """batch: tokens (B, S), labels (B, S) integer tensors (-1 = ignore).
+    Activations in ``dtype``; the readout in float32 (float64 when
+    ``dtype`` is float64).  Returns a 0-d tensor.  MTP, frontends, the
+    encoder and the other block kinds raise ``NotImplementedError``."""
+    build_plan(arch)
+    x = _embed_inputs(params, arch, batch, dtype)
+    h, aux = forward_hidden(params, arch, x)
+    tie = arch.tie_embeddings or "lm_head" not in params
+    table = params["embed"]["table"] if tie else params["lm_head"]
+    loss = chunked_ce(h, table, batch["labels"], arch.loss_chunk,
+                      transpose=tie)
+    return loss + aux
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,8 @@ def _atol(name, enc):
     return TOL
 
 
-@pytest.mark.parametrize("name", objectives.names())
+@pytest.mark.parametrize("name", [n for n in objectives.names()
+                                  if ":" not in n])
 def test_kernel_matches_plain_version(cuda, name):
     obj = objectives.get(name)
     _check_kernel_vs_plain(cuda, name, obj, obj.encoding)
@@ -700,3 +701,115 @@ def test_masked_mesh_device_driver_equals_host_driver(cuda):
                   x0=x0, max_iters=64) for d in ("device", "host")]
     assert runs[0].extras["history"] == runs[1].extras["history"]
     assert float(runs[0].best_f) < runs[0].extras["history"][0]
+
+
+# ---------------------------------------------------------------------------
+# the train path and subspace DGO on the card (no kernel: the card's
+# PyTorch against the CPU's)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(7,), (3, 1000, 7), (5_000_001,)])
+def test_normal_twin_on_card_equals_numpy_twin(cuda, shape):
+    """The device twin's draws are the numpy twin's bit for bit on the
+    card too (float64 log1p and sqrt, each rounded once to float32)."""
+    from repro_torch.core import prng
+
+    key = prng.fold_in(prng.PRNGKey(3), 17)
+    got = prng.normal_torch(key, shape, cuda).cpu().numpy()
+    assert np.array_equal(got.view(np.int32),
+                          prng.normal(key, shape).view(np.int32))
+    got = prng.uniform_torch(key, shape, -5.12, 5.12, cuda).cpu().numpy()
+    assert np.array_equal(got.view(np.int32), prng.uniform(
+        key, shape, -5.12, 5.12).view(np.int32))
+
+
+def _reduced_batch(b=2, s=20):
+    from repro_torch.data import lm_synthetic_batch
+    from repro_torch.core import prng
+
+    tokens, labels = lm_synthetic_batch(prng.PRNGKey(5), b, s, 256)
+    return {"tokens": torch.from_numpy(tokens).long(),
+            "labels": torch.from_numpy(labels).long()}
+
+
+def test_lm_loss_and_gradients_on_card_match_cpu(cuda):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.core.tree import entries, tree_map
+    from repro_torch.models.lm import init_model, lm_loss
+
+    arch = reduced(get_arch("qwen2-1.5b"))
+    grads = {}
+    for dev in ("cpu", cuda):
+        params = init_model(arch, prng.PRNGKey(0), device=dev).tree()
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        batch = {k: v.to(dev) for k, v in _reduced_batch().items()}
+        loss = lm_loss(live, arch, batch, dtype=torch.float32)
+        loss.backward()
+        grads[str(dev)] = (float(loss.detach()), {
+            k: (g.stacked() if hasattr(g, "stacked") else g).cpu().numpy()
+            for k, g in entries(tree_map(lambda p: p.grad, live))})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads["cpu"], grads["cuda"]
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for k, g in g_cpu.items():
+        assert np.abs(g_gpu[k] - g).max() <= 1e-4 * np.abs(g).max(), k
+
+
+def test_subspace_objective_on_card_matches_cpu(cuda):
+    """70 children across the search box (losses ~50-135: z = +-1 moves
+    the weights far) on the card and on the CPU: a whole model's float32
+    in two summation orders, so the bar is the whole-model bar of
+    tests/test_models.py (2e-4 relative)."""
+    z = torch.rand(70, 24, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    obj = objectives.get("subspace-lm:qwen2-1.5b")
+    want = obj.fn(z).numpy()
+    got = obj.fn(z.to(cuda)).cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"subspace objective, card vs CPU: max relative {rel:.3e}")
+    assert rel <= 2e-4, rel
+
+
+def test_subspace_problem_takes_the_plain_step_on_card(cuda):
+    """A subspace objective has no device form: under Fused, Batched and
+    solve_many on the card it takes the plain tensor step (no popstep
+    launch) and does not raise."""
+    from repro_torch.core.solver import Batched, SolveRequest, solve_many
+
+    prob = Problem.get("subspace-lm:qwen2-1.5b", d=4, bits=3, layers=1)
+    ops.launches = ops.fold_launches = 0
+    runs = [solve(prob, Fused(max_bits=5), seed=1, max_iters=4),
+            solve(prob, Batched(restarts=3), seed=2, max_iters=4)]
+    runs += solve_many([SolveRequest(prob, seed=s, max_iters=4)
+                        for s in range(3)], pad_to=4)
+    torch.cuda.synchronize()
+    assert ops.launches == ops.fold_launches == 0
+    assert all(np.isfinite(float(r.best_f)) for r in runs)
+    assert all(r.extras["problem_signature"] == prob.signature
+               for r in runs)
+
+
+def test_trainer_on_card_follows_cpu(cuda, tmp_path):
+    """Three reduced steps on the card and on the CPU from the same seed:
+    the first loss within 1e-5, the others within 1e-3 (AdamW's first
+    steps amplify rounding, tests/test_torch_train.py); the card's
+    checkpoint restores bit for bit."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.tree import entries
+    from repro_torch.launch import train
+
+    argv = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "3",
+            "--global-batch", "2", "--seq-len", "16", "--ckpt-every", "3"]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        args = train.build_argparser().parse_args(
+            argv + ["--ckpt-dir", str(tmp_path / dev)])
+        runs[dev] = train.run_training(args, device=dev, keep_state=True)
+    l_cpu, l_gpu = (np.asarray(runs[d]["losses"]) for d in ("cpu", "cuda"))
+    rel = np.abs(l_gpu - l_cpu) / l_cpu
+    assert rel[0] <= 1e-5 and rel.max() <= 1e-3, rel
+    state = runs["cuda"]["state"]
+    back = restore_checkpoint(tmp_path / "cuda", 3, state)
+    for (k, a), (_, b) in zip(entries(back), entries(state)):
+        a = a.stacked() if hasattr(a, "stacked") else a
+        b = b.stacked() if hasattr(b, "stacked") else b
+        assert a.device.type == "cuda" and torch.equal(a, b), k

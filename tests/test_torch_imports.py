@@ -99,3 +99,18 @@ ZOO = ("repro_torch.configs", "repro_torch.configs.qwen2_1_5b",
 def test_every_zoo_module_is_covered(name):
     """The serving slice's modules are among the modules imported above."""
     assert name in _module_names()
+
+
+TRAIN = ("repro_torch.core.prng", "repro_torch.core.tree",
+         "repro_torch.core.subspace", "repro_torch.core.meta",
+         "repro_torch.data", "repro_torch.data.pipeline",
+         "repro_torch.optim", "repro_torch.optim.gradient",
+         "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+         "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("name", TRAIN)
+def test_every_train_module_is_covered(name):
+    """The train path's and subspace DGO's modules are among the modules
+    imported above."""
+    assert name in _module_names()

@@ -347,11 +347,11 @@ def test_serve_lm_prompts_follow_the_seed():
 
 
 def test_serve_main_has_no_dgo_and_needs_a_card():
-    """``--dgo`` is ported but its ``--ckpt-dir`` is not (the checkpoint
-    store, queue 1 #8); both branches need a card."""
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        serve.main(["--dgo", "--ckpt-dir", "ckpt"])
+    """``--dgo`` (with ``--ckpt-dir`` too) and the LM branch both need a
+    card."""
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--dgo", "--ckpt-dir", "ckpt"])
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--dgo", "--problem", "rastrigin", "--n-vars", "2"])
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -60,7 +60,10 @@ def test_objective_values_match_reference(name, kw):
 
 def test_registry_mirrors_reference():
     ref_names = tuple(n for n in jobj.names() if ":" not in n)
-    assert tobj.names() == ref_names
+    assert tuple(n for n in tobj.names() if ":" not in n) == ref_names
+    zoo = [n for n in tobj.names() if ":" in n]
+    assert zoo == ["subspace-lm:qwen2-1.5b"]
+    assert set(zoo) <= set(jobj.names())
     for name in ref_names:
         assert tobj.accepts_n(name) == jobj.accepts_n(name)
     for name, kw in [("rastrigin", {}), ("rastrigin", {"n": 2}),
@@ -74,14 +77,20 @@ def test_registry_mirrors_reference():
 
 
 def test_every_registry_objective_has_a_kernel_form():
+    """Every registry objective but the model-zoo tuning family, which
+    has no device form (the reference runs it through the plain step)."""
     ids = set()
-    for name in tobj.names():
+    paper = [n for n in tobj.names() if ":" not in n]
+    for name in paper:
         form = tobj.get(name).kernel
         assert form is not None and form.obj_id == tobj.OBJECTIVE_IDS[name]
         assert all(c.dtype == torch.float32 and c.is_contiguous()
                    for c in form.consts)
         ids.add(form.obj_id)
-    assert len(ids) == len(tobj.names())
+    assert len(ids) == len(paper) == len(tobj.OBJECTIVE_IDS)
+    for name in tobj.names():
+        if ":" in name:
+            assert tobj.get(name, d=2, layers=1).kernel is None
 
 
 def test_load_reference_state_carries_the_data():

@@ -133,3 +133,72 @@ def test_remote_sensing_objective_is_the_references():
     want = float(jax.jit(ref.fn)(jnp.asarray(w)))
     got = float(port.fn(torch.as_tensor(w)[None])[0])
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# fold_in, randint, permutation, and the PyTorch twin of the draws
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("data", [0, 1, 7, 2**31 - 1, 2**31 + 3, 2**32 - 1])
+def test_fold_in_bitwise(data):
+    for seed in (0, 3, 2**31 - 1):
+        key = jax.random.PRNGKey(seed)
+        assert np.array_equal(prng.fold_in(np.asarray(key), data),
+                              np.asarray(jax.random.fold_in(key, data)))
+
+
+@pytest.mark.parametrize("box", [(0, 256), (0, 151_936), (-5, 7), (3, 3),
+                                 (9, 2), (0, 2**31 - 1),
+                                 (-2**31, 2**31 - 1)])
+def test_randint_bitwise(box):
+    """The span/multiplier arithmetic in wrapping uint32, an empty range
+    (minval returned) included."""
+    for seed in range(4):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.random.randint(key, (1000,), *box))
+        got = prng.randint(np.asarray(key), (1000,), *box)
+        assert got.dtype == want.dtype == np.int32
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 256, 4096, 151_936])
+def test_permutation_bitwise(n):
+    """jax's ``_shuffle``: one sort round up to n = 1,663, two at the full
+    vocabulary (stable among equal 32-bit keys)."""
+    for seed in (7, 11):
+        key = jax.random.PRNGKey(seed)
+        assert np.array_equal(prng.permutation(np.asarray(key), n),
+                              np.asarray(jax.random.permutation(key, n)))
+
+
+@pytest.fixture
+def small_chunks(monkeypatch):
+    """Chunks of 1,000 elements, so the draws below cross chunk edges."""
+    monkeypatch.setattr(prng, "TORCH_CHUNK", 1000)
+
+
+@pytest.mark.parametrize("shape", [(7,), (33, 61), (4, 1000, 3)])
+def test_torch_twin_equals_numpy_twin(small_chunks, shape):
+    """uniform and normal through PyTorch (int64-emulated uint32) equal
+    the numpy twin's bit for bit."""
+    for seed in (0, 1, 42):
+        key = prng.split(prng.PRNGKey(seed))[1]
+        for box in ((0.0, 1.0), (-5.12, 5.12), (1e-6, 1.0)):
+            u = prng.uniform_torch(key, shape, *box).numpy()
+            assert np.array_equal(u.view(np.int32),
+                                  prng.uniform(key, shape, *box)
+                                  .view(np.int32))
+        got = prng.normal_torch(key, shape)
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        assert np.array_equal(got.numpy().view(np.int32),
+                              prng.normal(key, shape).view(np.int32))
+
+
+def test_torch_twin_normal_within_ulps_of_jax():
+    """The PyTorch twin's normals are the numpy twin's, so within its
+    ulps of ``jax.random.normal`` (a leaf of the reduced model's shape,
+    drawn as ``init_params`` draws it)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 5)
+    want = np.asarray(jax.random.normal(key, (4, 64, 2, 16)))
+    got = prng.normal_torch(np.asarray(key), (4, 64, 2, 16)).numpy()
+    assert _ulps(got, want).max() <= NORMAL_ULP

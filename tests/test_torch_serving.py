@@ -1029,7 +1029,7 @@ def test_serve_dgo_closed_loop_pipelined_and_not():
     assert rep["completed"] + rep["failed"] == 8
 
 
-def test_serve_dgo_checks_its_flags():
+def test_serve_dgo_checks_its_flags(tmp_path):
     from repro_torch.launch import serve
 
     def args(*argv):
@@ -1044,8 +1044,12 @@ def test_serve_dgo_checks_its_flags():
     with pytest.raises(NotImplementedError, match="queue 1 #8"):
         serve.serve_dgo(args("--problems", "subspace-lm:xlstm-125m"),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint store"):
-        serve.serve_dgo(args("--ckpt-dir", "ckpt"), device="cpu")
+    # --ckpt-dir persists tuning winners only: none among paper problems
+    rep = serve.serve_dgo(args("--ckpt-dir", str(tmp_path), "--problem",
+                               "rastrigin", "--n-vars", "2", "--restarts",
+                               "2", "--waves", "1", "--max-iters", "4"),
+                          device="cpu")
+    assert rep["completed"] == 2 and rep["checkpoints"] == []
     specs = serve._parse_problem_specs(args("--problems",
                                             "rastrigin:3, shekel,,ackley:5"))
     assert [p.name for p in specs] == ["rastrigin3d", "shekel5", "ackley5d"]
