@@ -167,6 +167,33 @@ Phases (any failure exits non-zero; none is caught):
              for bit; (c) ``meta_objective`` on the reference test's
              quadratic short-train through ``Fused(max_bits=7)``, best_f
              below 1e-2.
+10. zoo    — five more architectures of the registry on the card, one at a
+             time, each freed before the next (``ZOO``): codeqwen1.5-7b
+             (32 layers, B = 2, prompt 1,024), gemma3-27b (its first 12
+             layers at full width, B = 1, prompt 2,048 over 1,024-token
+             windows), granite-34b (MQA, its first 16 layers, B = 2,
+             prompt 1,024), whisper-medium (B = 4, 1,500 stub frames,
+             prompt 128) and phi-3-vision-4.2b (hd 96, B = 2, 576 stub
+             image tokens and a prompt of 448), f32 with random weights
+             from a seeded generator: (a) ``serve_lm`` with the flash
+             route on, 8 tokens, 2 waves, the kernel's count set to 0
+             just before and read just after (``ZOO_LAUNCHES`` a
+             prefill: every global full-sequence self-attention, the
+             encoder's bidirectional layers among them); (b) the same
+             weights, prompts and stub inputs through the chunked plain
+             attention: prefill logits within 1e-3 x max |logit|, greedy
+             tokens equal but at near-ties; one prefill under the
+             profiler (the kernel's share of the device time); (c) the
+             first q/k/v of each attention shape a model gave the kernel
+             through the f32 and bf16 kernels against the plain version
+             and ref.py (f32 within ``FLASH_TOL``, bf16 by
+             ``check_flash_scaled``), each timed beside its bound,
+             the plain version and ``scaled_dot_product_attention``
+             (``by_model`` in the kernels line); (d) ``run_training`` of
+             ``reduced()`` whisper-medium and phi-3-vision, 2 steps,
+             finite losses; (e) ``solve(subspace-lm:whisper-medium,
+             Fused(), max_iters=4)`` on the card: best_f finite, no
+             popstep launch.
 
 The last lines are the card's name and power limit, a JSON line with
 every kernel's measurements (``popstep`` — its launches summed over
@@ -174,10 +201,12 @@ phases 4, 4b and 8, each path's count under ``by_path`` —, ``popstep_fold``
 — merged into
 ``popstep``'s launch, timed through the check entry —, ``graycode``,
 ``fixedpoint``, ``popmin``, ``popmin_fold`` — merged into ``popmin``'s
-launch, timed through the check entry —, ``flash_attention`` — f32 — and
-``flash_attention_bf16``; each entry's ``clock`` is ``"profiler"``
-when every one of its times is the profiler's device time over whole
-records, else it names each time that is not), and
+launch, timed through the check entry —, ``flash_attention`` — f32, its
+launches summed over phases 7 and 10 (``by_path``), phase 10's shapes
+under ``by_model`` — and ``flash_attention_bf16``; each entry's
+``clock`` is ``"profiler"`` when every one of its times is the
+profiler's device time over whole records, else it names each time that
+is not), and
 ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the repository's
 ``src/repro_torch`` beside this file, it exits non-zero and prints no
@@ -259,7 +288,7 @@ PROFILE_PAUSE_S = 1.0  # between them (see profiled)
 
 
 def profiled(fn, name: str | None = None, want: int | None = None, *,
-             calls: int = 1, cpu: bool = True):
+             calls: int = 1, cpu: bool = True, tries: int | None = None):
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity, and CPU
     activity unless ``cpu`` is false), ending in a synchronize; returns
     (the profiler, wall seconds).  The profiler loses records: on an H100
@@ -273,12 +302,14 @@ def profiled(fn, name: str | None = None, want: int | None = None, *,
     last record (one of 20 launches, every session of a run): each
     session ends with ``TAIL_LAUNCHES`` tiny ``torch.cuda._sleep``
     kernels after the timed work, which :func:`_device_activity` leaves
-    out, so that such a loss takes one of them."""
+    out, so that such a loss takes one of them.  ``tries`` overrides
+    ``PROFILE_TRIES``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
-    for attempt in range(1, PROFILE_TRIES + 1):
+    tries = tries or PROFILE_TRIES
+    for attempt in range(1, tries + 1):
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
@@ -293,8 +324,8 @@ def profiled(fn, name: str | None = None, want: int | None = None, *,
         print(f"[time] profiler session {attempt} recorded {n} "
               f"{name or 'device'} activities (want {want or 'some'}"
               f"{f' in {calls} equal calls' if calls > 1 else ''})"
-              + ("; profiling again" if attempt < PROFILE_TRIES else ""))
-        if attempt < PROFILE_TRIES:
+              + ("; profiling again" if attempt < tries else ""))
+        if attempt < tries:
             time.sleep(PROFILE_PAUSE_S)
     return prof, wall
 
@@ -318,7 +349,8 @@ def clock_of(entry: str) -> str:
     return "profiler" if not notes else "profiler; " + "; ".join(notes)
 
 
-def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
+def device_ms(fn, reps: int, dev, name: str | None = None, *,
+              tries: int | None = None) -> float:
     """Mean device milliseconds per call: the CUDA activity that
     ``torch.profiler`` records over ``reps`` calls, or, when ``name`` is
     given, the mean of the recorded launches of kernels whose name
@@ -329,8 +361,8 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     events around the calls instead (:func:`time_ms`; host work between
     launches included when the host is the slower side).  That, and a
     total over records of which some were lost, is noted in
-    ``CLOCK_NOTES`` and printed.  (Off the card, for a rehearsal, the
-    host clock.)"""
+    ``CLOCK_NOTES`` and printed.  ``tries``: :func:`profiled`'s
+    sessions.  (Off the card, for a rehearsal, the host clock.)"""
     import torch
 
     if dev.type != "cuda":
@@ -338,7 +370,7 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     fn()
     torch.cuda.synchronize()
     prof, _ = profiled(lambda: [fn() for _ in range(reps)], name,
-                       reps if name else None, calls=reps)
+                       reps if name else None, calls=reps, tries=tries)
     us, n = _device_activity(prof, name)
     what = name or "plain/library"
     notes = CLOCK_NOTES.setdefault(_TIMING_FOR[0], [])
@@ -353,8 +385,8 @@ def device_ms(fn, reps: int, dev, name: str | None = None) -> float:
     ms = time_ms(fn, reps, dev)
     notes.append(f"{what} {ms:.4f} ms by CUDA events")
     print(f"[time] the profiler recorded no device time for {what} in "
-          f"{PROFILE_TRIES} sessions: {ms:.4f} ms a call by CUDA events "
-          f"instead")
+          f"{tries or PROFILE_TRIES} sessions: {ms:.4f} ms a call by CUDA "
+          f"events instead")
     return ms
 
 
@@ -3124,6 +3156,284 @@ def phase_meta(dev) -> float:
     return float(res.best_f)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the zoo — five more architectures served on the card
+# ---------------------------------------------------------------------------
+
+# (name, depth cut or None for every layer, serve_lm's batch and prompt):
+# gemma3-27b is 108 GB in f32 and granite-34b 189 GB, so each keeps its
+# full width and takes its first 12 / 16 layers (gemma's 6th and 12th
+# global); gemma's prompt of 2,048 is longer than its 1,024-token window
+ZOO = (("codeqwen1.5-7b", None, 2, 1024),
+       ("gemma3-27b", 12, 1, 2048),
+       ("granite-34b", 16, 2, 1024),
+       ("whisper-medium", None, 4, 128),
+       ("phi-3-vision-4.2b", None, 2, 448))
+# flash launches a prefill: every global full-sequence self-attention
+# (gemma: 2 of 12 layers; whisper: 24 encoder layers over 1,500 frames
+# and 24 decoder layers; cross-attention's queries are not its keys)
+ZOO_LAUNCHES = {"codeqwen1.5-7b": 32, "gemma3-27b": 2, "granite-34b": 16,
+                "whisper-medium": 48, "phi-3-vision-4.2b": 32}
+ZOO_SERVE = dict(gen_len=8, waves=2, seed=0)
+ZOO_TRAIN = ("whisper-medium", "phi-3-vision-4.2b")
+ZOO_TRAIN_ARGV = ("--reduced", "--steps", "2", "--global-batch", "2",
+                  "--seq-len", "16", "--ckpt-every", "100", "--log-every",
+                  "100")
+ZOO_SUBSPACE = "subspace-lm:whisper-medium"
+# profiler sessions of a phase-10 timing: on one H100 every session from
+# the third model on lost 2-4 of 10 records, six times in a row, which
+# cost two minutes; a kernel's time is the mean over the launches kept
+ZOO_PROFILE_TRIES = 2
+ZOO_SUBSPACE_ITERS = 4
+
+
+def zoo_arch(name, depth):
+    """The registry's config at full width (its first ``depth`` layers
+    when given), with the flash route on."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(name)
+    return dataclasses.replace(arch, n_layers=depth or arch.n_layers,
+                               use_flash_attention=True)
+
+
+def check_flash_scaled(q, k, v, causal, window, label) -> float:
+    """The bf16 kernel at a model's own activations against its plain
+    version and ref.py: ``FLASH_TOL``'s 2e-2 is an absolute bar set on
+    unit-scale random inputs, and a model's attention outputs reach 4-8,
+    where one bfloat16 step is 2^-5 = 0.031; so each element's error is
+    held to 2e-2 x max(1, |plain or ref|), the same bar up to magnitude
+    1 and about two and a half bfloat16 steps above it.  Returns the
+    largest |kernel - plain|."""
+    from repro_torch.kernels.flash_attention import ops
+
+    got = ops.flash_sdpa(q, k, v, causal=causal, window=window).double()
+    tol = FLASH_TOL["bfloat16"]
+    errs = []
+    for want in (ops.flash_sdpa_plain(q, k, v, scale=q.shape[-1] ** -0.5,
+                                      causal=causal, window=window),
+                 _flash_oracle(q, k, v, causal, window)):
+        d = (got - want.double()).abs()
+        errs.append((float(d.max()), float(
+            (d / want.double().abs().clamp_min(1.0)).max())))
+    (a_plain, s_plain), (a_ref, s_ref) = errs
+    msg = (f"{label}: |kernel - plain| {a_plain:.3g} ({s_plain:.3g} of "
+           f"max(1, |plain|)), |kernel - ref| {a_ref:.3g} ({s_ref:.3g} of "
+           f"max(1, |ref|)) (bar {tol:g} of it)")
+    check(s_plain <= tol and s_ref <= tol, f"flash {msg}")
+    print(f"[flash] {msg}")
+    return a_plain
+
+
+def time_zoo_shape(q, k, v, kw, dev) -> dict:
+    """The f32 and bf16 kernels at one shape a model gave them: each held
+    against the plain version and ref.py (``check_flash``), timed beside
+    its bound, the plain version (f32) and ``scaled_dot_product_attention``
+    on the same tensors (one call; ``enable_gqa`` where Hq != Hkv).  The
+    kernels' times are the profiler's mean over the launches it kept;
+    the plain version and SDPA, many launches a call of which the
+    profiler drops some, are timed with CUDA events around the calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    b, s, hq, hd = q.shape
+    hkv, causal, window = k.shape[2], kw["causal"], kw["window"]
+    shape = (b, s, hq, hkv, hd)
+    label = (f"B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
+             f"{'causal' if causal else 'bidirectional'}")
+    out = {"shape": list(shape), "causal": causal}
+    for dt, elem in (("float32", 4), ("bfloat16", 2)):
+        x = [t.to(getattr(torch, dt)) for t in (q, k, v)]
+        sfx = "" if dt == "float32" else "_bf16"
+        if dt == "float32":
+            out["max_abs_err"] = check_flash(*x, causal, window,
+                                             FLASH_TOL[dt], f"zoo {label} f32")
+        else:
+            out["max_abs_err_bf16"] = check_flash_scaled(*x, causal, window,
+                                                         f"zoo {label} bf16")
+        out["ms" + sfx] = device_ms(lambda: ops.flash_sdpa(
+            *x, causal=causal, window=window), 10, dev, FLASH_KERNELS[dt],
+            tries=ZOO_PROFILE_TRIES)
+        xt = [t.transpose(1, 2) for t in x]
+        out["library_ms" + sfx] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                *xt, is_causal=causal, enable_gqa=hq != hkv), 10, dev)
+        out["bound_ms" + sfx], out["bound_by" + sfx] = flash_bound_ms(
+            shape, causal, window, elem, FLASH_PEAKS[dt])
+        del x, xt
+    out["plain_ms"] = time_ms(lambda: ops.flash_sdpa_plain(
+        q, k, v, scale=hd ** -0.5, causal=causal, window=window), 3, dev)
+    print(f"[time] zoo flash {label}: f32 {out['ms']:.4f} ms (bound "
+          f"{out['bound_ms']:.4f} ms, {out['bound_by']}, "
+          f"{out['bound_ms'] / out['ms']:.3f} of it; SDPA "
+          f"{out['library_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms), "
+          f"bf16 {out['ms_bf16']:.4f} ms (bound {out['bound_ms_bf16']:.4f} "
+          f"ms, {out['bound_ms_bf16'] / out['ms_bf16']:.3f} of it; SDPA "
+          f"{out['library_ms_bf16']:.4f} ms); the kernels' device time, "
+          f"SDPA and plain by CUDA events")
+    return out
+
+
+def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
+    """10a-c for one model: ``serve_lm`` through the kernel, its count set
+    to 0 just before and read just after; the same weights, prompts and
+    stub inputs through the chunked plain attention (prefill logits
+    within 1e-3 x max |logit|, tokens equal but at near-ties); one
+    prefill under the profiler; the kernel at each shape the model gave
+    it (the first call of each (S, causal))."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import init_model, lm_prefill, n_params
+
+    arch = zoo_arch(name, depth)
+    kw = dict(batch=batch, prompt_len=prompt_len, **ZOO_SERVE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(arch, torch.Generator(device=dev).manual_seed(
+        kw["seed"]))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    captured: dict = {}
+    real = ops.flash_sdpa
+
+    def capture(q, k, v, **kwargs):    # the first call of each shape
+        key = (q.shape[1], kwargs["causal"])
+        if key not in captured:
+            captured[key] = (q.clone(), k.clone(), v.clone(), kwargs)
+        return real(q, k, v, **kwargs)
+
+    ops.flash_sdpa = capture
+    ops.launches = 0
+    res = serve_lm(arch, params=params, **kw)       # device None: the card
+    n_launch = ops.launches
+    ops.flash_sdpa = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = ZOO_LAUNCHES[name] * kw["waves"]
+    cut = f", first {depth} of its layers" if depth else ""
+    print(f"[zoo] {name} f32 ({n_params(arch):,} parameters{cut}; drawn "
+          f"in {t_init:.2f} s) B={batch} prompt {prompt_len}"
+          + (f" after {arch.vision_tokens} image tokens"
+             if arch.vision_tokens else "")
+          + (f", {arch.n_frames} frames" if arch.enc_dec else "")
+          + f", gen {kw['gen_len']}, {kw['waves']} waves: flash launches "
+          f"{n_launch} (want {want}); prefill wall "
+          f"{', '.join(f'{s:.4f}' for s in res.prefill_s)} s; decode "
+          f"{res.decode_tokens_per_s:.1f} tokens/s ({res.decode_tokens} "
+          f"tokens in {res.decode_s:.4f} s); peak memory {peak:.2f} GiB")
+    check(n_launch == want, f"zoo {name}: {n_launch} flash launches, want "
+                            f"{want}")
+    for toks, logits in zip(res.tokens, res.logits):
+        check(tuple(toks.shape) == (batch, kw["gen_len"])
+              and bool(logits.isfinite().all()),
+              f"zoo {name}: tokens {tuple(toks.shape)} or non-finite logits")
+
+    plain = serve_lm(dataclasses.replace(arch, use_flash_attention=False),
+                     device=dev, params=params, **kw)
+    notes = []
+    for w in range(kw["waves"]):
+        check(torch.equal(res.prompts[w], plain.prompts[w])
+              and all(torch.equal(res.extras[w][x], plain.extras[w][x])
+                      for x in res.extras[w]),
+              f"zoo {name} wave {w}: inputs differ")
+        la, lb = res.logits[w][0], plain.logits[w][0]
+        d, big = _max_abs(la, lb), float(lb.abs().max())
+        check(d <= 1e-3 * big, f"zoo {name} wave {w}: prefill logits differ "
+                               f"by {d:.3g} > 1e-3 x {big:.3g}")
+        parted = tokens_match(res.tokens[w].cpu().numpy(),
+                              plain.tokens[w].cpu().numpy(),
+                              plain.logits[w].cpu().numpy())
+        notes.append(f"wave {w}: max |logit diff| {d:.3g} (max |logit| "
+                     f"{big:.3g}), tokens "
+                     + (f"part at near-ties {parted}" if parted
+                        else "identical"))
+    print(f"[zoo] {name} flash vs chunked plain attention: "
+          f"{'; '.join(notes)}")
+
+    inputs = {"tokens": res.prompts[0].to(dev),
+              **{x: t.to(dev) for x, t in res.extras[0].items()}}
+    cache_len = prompt_len + kw["gen_len"]
+    f32 = FLASH_KERNELS["float32"]
+    prof, wall = profiled(lambda: lm_prefill(
+        params, arch, inputs, cache_len, dtype=torch.float32), f32,
+        ZOO_LAUNCHES[name], tries=ZOO_PROFILE_TRIES)
+    k_us, k_n = _device_activity(prof, f32)
+    all_us, _ = _device_activity(prof)
+    print(f"[zoo] {name} one prefill under the profiler: wall {wall:.4f} s, "
+          f"device {all_us / 1e3:.3f} ms, of which {k_n} flash launches "
+          f"{k_us / 1e3:.3f} ms ({k_us / max(all_us, 1e-9):.3f} of it)")
+    del params, res, plain, inputs, prof
+    torch.cuda.empty_cache()
+    shapes = [time_zoo_shape(q, k, v, kwargs, dev)
+              for q, k, v, kwargs in captured.values()]
+    del captured
+    torch.cuda.empty_cache()
+    return {"launches": n_launch, "prefill_share": k_us / max(all_us, 1e-9),
+            "shapes": shapes}
+
+
+def phase_zoo(dev) -> dict:
+    """Phase 10: the zoo beyond qwen2 on the card. (a-c) each model of
+    ``ZOO`` served at full width (gemma3 and granite cut in depth), one
+    at a time, by :func:`serve_zoo_model`; (d) ``run_training`` of
+    ``reduced()`` whisper-medium and phi-3-vision for 2 steps, losses
+    finite; (e) ``solve(subspace-lm:whisper-medium, Fused(),
+    max_iters=4)`` on the card: best_f finite, no popstep launch."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.solver import Fused, solve
+    from repro_torch.kernels.popstep import ops as popstep
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    CLOCK_NOTES.setdefault("flash_attention", []).append(
+        "phase 10's plain_ms and library_ms by CUDA events")
+    by_model = {}
+    for name, depth, batch, prompt_len in ZOO:
+        by_model[name] = serve_zoo_model(name, depth, batch, prompt_len, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ZOO_TRAIN:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+        try:
+            args = train.build_argparser().parse_args(
+                ["--arch", name, *ZOO_TRAIN_ARGV, "--ckpt-dir", tmp])
+            out = train.run_training(args, device=dev)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"[zoo] run_training reduced {name}: losses {out['losses']}, "
+              f"step seconds {out['step_s']}")
+        check(len(out["losses"]) == 2
+              and all(np.isfinite(v) for v in out["losses"]),
+              f"zoo train {name}: losses {out['losses']}")
+    popstep.launches = popstep.fold_launches = 0
+    t0 = time.perf_counter()
+    res = solve(ZOO_SUBSPACE, Fused(), seed=0, max_iters=ZOO_SUBSPACE_ITERS,
+                device=None if dev.type == "cuda" else dev)
+    wall = time.perf_counter() - t0
+    print(f"[zoo] solve({ZOO_SUBSPACE}, Fused(), max_iters="
+          f"{ZOO_SUBSPACE_ITERS}) on the card: best_f {float(res.best_f)!r}, "
+          f"{res.iterations} steps, {res.extras['evaluations']} evaluations in "
+          f"{wall:.2f} s; popstep launches {popstep.launches}")
+    check(np.isfinite(float(res.best_f)) and popstep.launches == 0
+          and popstep.fold_launches == 0,
+          f"zoo subspace: best_f {float(res.best_f)}, popstep launches "
+          f"{popstep.launches} + {popstep.fold_launches}")
+    print(f"[zoo] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return by_model
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3165,8 +3475,11 @@ def main() -> None:
     phase_train(dev)
     phase_subspace(dev)
     phase_meta(dev)
+    timing_for("flash_attention")
+    zoo = phase_zoo(dev)
     n_launch = sum(n for n, _ in by_path.values())
     n_fold = sum(f for _, f in by_path.values())
+    zoo_launches = sum(m["launches"] for m in zoo.values())
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card_line())
     source = "src/repro_torch/kernels/popstep/csrc/popstep.cu"
@@ -3232,12 +3545,21 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": f"{kernels_dir}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
-        "launches": served["launches"],
-        "max_abs_err": max(ft["max_abs_err"], served["max_abs_err"]),
+        "launches": served["launches"] + zoo_launches,
+        "max_abs_err": max(ft["max_abs_err"], served["max_abs_err"],
+                           *(sh["max_abs_err"] for m in zoo.values()
+                             for sh in m["shapes"])),
         "ms": ft["serve"], "plain_ms": ft["serve_plain"],
         "bound_ms": ft["serve_bound"], "bound_by": ft["serve_bound_by"],
         "library_ms": ft["serve_sdpa_f32"],
-        "clock": clock_of("flash_attention")}, {
+        "clock": clock_of("flash_attention"),
+        "by_path": {"serve": served["launches"], "zoo": zoo_launches},
+        "by_model": {name: {
+            "launches": m["launches"], "prefill_share": m["prefill_share"],
+            "shapes": [{k: sh[k] for k in (
+                "shape", "causal", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+                for sh in m["shapes"]]} for name, m in zoo.items()}}, {
         "name": "flash_attention_bf16", "route": "cuda",
         "source": f"{kernels_dir}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
@@ -3247,7 +3569,13 @@ def main() -> None:
         "bound_ms": ft["serve_bf16_bound"],
         "bound_by": ft["serve_bf16_bound_by"],
         "library_ms": ft["serve_sdpa_bf16"],
-        "clock": clock_of("flash_attention")}]}))
+        "clock": clock_of("flash_attention"),
+        "by_model": {name: {"shapes": [{
+            "shape": sh["shape"], "causal": sh["causal"],
+            "max_abs_err": sh["max_abs_err_bf16"], "ms": sh["ms_bf16"],
+            "bound_ms": sh["bound_ms_bf16"], "bound_by": sh["bound_by_bf16"],
+            "library_ms": sh["library_ms_bf16"]} for sh in m["shapes"]]}
+            for name, m in zoo.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,6 +33,7 @@ from repro_torch.core.solver import (
     solve_many,
     strategy_names,
 )
+from repro_torch.core.subspace import apply_subspace, materialize_winner
 
 __all__ = [
     # the solver facade
@@ -72,4 +73,7 @@ __all__ = [
     "make_distributed_engine",
     "make_distributed_engine_batched",
     "make_distributed_step",
+    # subspace DGO (LM training path)
+    "apply_subspace",
+    "materialize_winner",
 ]

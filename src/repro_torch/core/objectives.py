@@ -188,6 +188,16 @@ XOR_X = np.asarray([[0.0, 0], [0, 1], [1, 0], [1, 1]], np.float32)
 XOR_Y = np.asarray([0.0, 1, 1, 0], np.float32)
 
 
+def xor_forward(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The network's output for inputs ``x`` (..., 2) under the weights
+    ``w`` (8,)."""
+    w1 = w[:4].reshape(2, 2)
+    b1 = w[4:6]
+    w2 = w[6:8]
+    h = torch.tanh(x @ w1 + b1)
+    return torch.sigmoid(h @ w2)
+
+
 def xor_objective() -> Objective:
     return _xor(XOR_X, XOR_Y)
 
@@ -234,6 +244,32 @@ def make_remote_sensing_data(seed: int = 42, n_per_class: int = 32
     x = (centers[:, None, :] + noise).reshape(-1, RS_IN)
     y = np.repeat(np.arange(RS_CLASSES), n_per_class)
     return x, y
+
+
+def rs_unpack(w: torch.Tensor):
+    """(w1 (7, 42), b1 (42,), w2 (42, 8), b2 (8,)) of the weights (680,)."""
+    i = 0
+    w1 = w[i:i + RS_IN * RS_HIDDEN].reshape(RS_IN, RS_HIDDEN)
+    i += RS_IN * RS_HIDDEN
+    b1 = w[i:i + RS_HIDDEN]
+    i += RS_HIDDEN
+    w2 = w[i:i + RS_HIDDEN * RS_CLASSES].reshape(RS_HIDDEN, RS_CLASSES)
+    i += RS_HIDDEN * RS_CLASSES
+    b2 = w[i:i + RS_CLASSES]
+    return w1, b1, w2, b2
+
+
+def rs_forward(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The MLP's logits (..., 8) for bands ``x`` (..., 7)."""
+    w1, b1, w2, b2 = rs_unpack(w)
+    h = torch.tanh(x @ w1 + b1)
+    return h @ w2 + b2
+
+
+def rs_accuracy(w: torch.Tensor, x: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """The share of samples whose argmax class is their label ``y``."""
+    return (torch.argmax(rs_forward(w, x), dim=-1) == y).float().mean()
 
 
 def remote_sensing_objective(seed: int = 42,

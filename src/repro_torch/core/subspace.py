@@ -145,8 +145,10 @@ def lm_tuning_objective(arch_name: str, *, d: int = 24, bits: int = 4,
     """A d-dimensional subspace-DGO tuning objective over one zoo model:
     ``reduced(arch)`` (its layers clamped to ``layers``), the reference's
     initial weights ``init_model(arch, PRNGKey(seed))``, the batch
-    ``lm_synthetic_batch(PRNGKey(seed + 1), batch, seq, vocab)`` and the
-    direction key ``PRNGKey(seed + 3)``; ``fn(zs)`` is
+    ``lm_synthetic_batch(PRNGKey(seed + 1), batch, seq, vocab)`` (with
+    ``0.02 * normal(PRNGKey(seed + 2))`` frames or images for the
+    frontend stubs, as the reference) and the direction key
+    ``PRNGKey(seed + 3)``; ``fn(zs)`` is
     ``lm_loss(apply_subspace(params0, z, key, alpha), ..., float32)`` for
     each row z of ``zs`` (the search box is [-1, 1]^d at ``bits`` bits).
 
@@ -179,8 +181,16 @@ def lm_tuning_objective(arch_name: str, *, d: int = 24, bits: int = 4,
                                                 batch, seq, arch.vocab_size)
             built["params0"] = params0
             built["layout"] = _layout(params0)
-            built["data"] = {"tokens": torch.from_numpy(tokens).long(),
-                             "labels": torch.from_numpy(labels).long()}
+            data = {"tokens": torch.from_numpy(tokens).long(),
+                    "labels": torch.from_numpy(labels).long()}
+            kf = prng.PRNGKey(seed + 2)          # the frontend stubs' key
+            if arch.enc_dec:
+                data["frames"] = 0.02 * torch.from_numpy(prng.normal(
+                    kf, (batch, arch.n_frames, arch.d_model)))
+            if arch.vision_tokens:
+                data["images"] = 0.02 * torch.from_numpy(prng.normal(
+                    kf, (batch, arch.vision_tokens, arch.d_frontend)))
+            built["data"] = data
         return built["params0"], built["layout"], built["data"]
 
     def state(device: torch.device) -> _TuningState:

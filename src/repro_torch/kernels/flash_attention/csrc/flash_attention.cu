@@ -59,7 +59,9 @@
 // columns (a bf16 row of hd 128 is two boxes), the swizzle that the wgmma
 // descriptors name; hd 16 and 32 load the same 64-column box, whose
 // columns past hd the TMA fills with zeros (hd < 64 is off the main path
-// and pays for 64).  The grid is persistent, one block an SM, walking the
+// and pays for 64), and hd 96 runs as hd 128: its second box, columns
+// 64-127, reads columns 96-127 as zeros, which add nothing to Q.K^T and
+// give P.V columns that the epilogue does not store.  The grid is persistent, one block an SM, walking the
 // (q tile, head) items longest first in snake order; Q is double-buffered,
 // so the next item's loads overlap this one's last tiles and its stores.
 //
@@ -177,9 +179,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                                float* __restrict__ o, int S, int Hq, int Hkv,
                                float scale, int causal, int window) {
   constexpr int kNC = HD / 4;                  // 16-byte chunks a row
-  constexpr int kVW = HD >= 64 ? 4 : HD / 16;  // output columns a vector
-  constexpr int kNV = HD / 16 / kVW;           // vectors a thread
   constexpr int kCols = HD / 16;               // output columns a thread
+  // output columns a vector: 4 where a thread's columns split into
+  // float4s, else 2 (hd 32; hd 96's 6 columns as 3 float2s) or 1 (hd 16)
+  constexpr int kVW = kCols % 4 == 0 ? 4 : kCols % 2 == 0 ? 2 : 1;
+  constexpr int kNV = kCols / kVW;             // vectors a thread
+  static_assert(kNC % (kNC >= 8 ? 8 : 4) == 0,
+                "the swizzle keeps each chunk in its row");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + kBQ * HD;
@@ -900,7 +906,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q: (B, S, Hq, hd), k/v: (B, S, Hkv, hd), o: (B, S, Hq, hd), contiguous,
-// 16-byte aligned; hd in {16, 32, 64, 128}; Hq a multiple of Hkv;
+// 16-byte aligned; hd in {16, 32, 64, 96, 128}; Hq a multiple of Hkv;
 // dtype 0 = float32, 1 = bfloat16; window 0 = global.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Hq, int Hkv, int hd, int dtype,
@@ -913,7 +919,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return flash::launch_bf16<64>(q, k, v, o, B, S, Hq, Hkv, hd, scale,
                                   causal, window, st);
   }
-  if (dtype == 1 && hd == 128) {
+  if (dtype == 1 && (hd == 96 || hd == 128)) {
     return flash::launch_bf16<128>(q, k, v, o, B, S, Hq, Hkv, hd, scale,
                                    causal, window, st);
   }
@@ -927,6 +933,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    window, st);
     case 64:
       return flash::launch_f32<64>(q, k, v, o, B, S, Hq, Hkv, scale, causal,
+                                   window, st);
+    case 96:
+      return flash::launch_f32<96>(q, k, v, o, B, S, Hq, Hkv, scale, causal,
                                    window, st);
     case 128:
       return flash::launch_f32<128>(q, k, v, o, B, S, Hq, Hkv, scale, causal,

@@ -33,7 +33,7 @@ launches = 0
 # simt::kBQ/kBK for float32, tc::kBQ/kBK for bfloat16)
 BLOCK_Q = {torch.float32: 128, torch.bfloat16: 128}
 BLOCK_K = {torch.float32: 64, torch.bfloat16: 128}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -7,7 +7,9 @@
 
 LM: requests arrive in waves; each wave is prefilled as a batch and
 decoded token by token (greedy), in float32; throughput is reported as
-decode tokens/s.
+decode tokens/s.  ``--arch`` takes every architecture of
+``configs.REGISTRY``; a vision model's requests carry stub image
+embeddings, an encoder-decoder's stub audio frames.
 
   # closed loop: submit restarts * waves requests, drain the queue
   PYTHONPATH=src python -m repro_torch.launch.serve --dgo \\
@@ -55,13 +57,15 @@ from repro_torch.models.lm import ArchConfig, init_model, lm_decode, lm_prefill
 
 @dataclasses.dataclass
 class ServeResult:
-    """Per wave: the prompts (B, prompt_len), the generated tokens
-    (B, gen_len) and the float32 logits each token was chosen from
-    (gen_len, B, V); the wall seconds of each wave's prefill; the decode
-    wall seconds and tokens of all waves (the first token of a wave comes
-    from its prefill and is not counted)."""
+    """Per wave: the prompts (B, prompt_len), the frontend stubs' inputs
+    (``images`` / ``frames`` on the CPU, empty for a text model), the
+    generated tokens (B, gen_len) and the float32 logits each token was
+    chosen from (gen_len, B, V); the wall seconds of each wave's prefill;
+    the decode wall seconds and tokens of all waves (the first token of a
+    wave comes from its prefill and is not counted)."""
 
     prompts: list[torch.Tensor]
+    extras: list[dict]
     tokens: list[torch.Tensor]
     logits: list[torch.Tensor]
     prefill_s: list[float]
@@ -79,14 +83,31 @@ def _clock(dev: torch.device) -> float:
     return time.perf_counter()
 
 
+def frontend_inputs(arch: ArchConfig, batch: int,
+                    gen: torch.Generator) -> dict:
+    """The stub frontends' inputs of one wave, as the reference's serve
+    loop makes them: ``images`` (B, vision_tokens, d_frontend) for a
+    vision model, ``frames`` (B, n_frames, d_model) for an
+    encoder-decoder, each 0.02 times a normal draw from ``gen``."""
+    out = {}
+    if arch.vision_tokens:
+        out["images"] = 0.02 * torch.randn(
+            (batch, arch.vision_tokens, arch.d_frontend), generator=gen)
+    if arch.enc_dec:
+        out["frames"] = 0.02 * torch.randn(
+            (batch, arch.n_frames, arch.d_model), generator=gen)
+    return out
+
+
 def serve_lm(arch: ArchConfig, *, batch: int, prompt_len: int, gen_len: int,
              waves: int, seed: int, device=None, params=None) -> ServeResult:
     """Serve ``waves`` batches of ``batch`` random prompts of
     ``prompt_len`` tokens, each prefilled and then decoded greedily for
     ``gen_len`` tokens in all.  Weights: ``params`` when given (on the
     device), else :func:`init_model` from a generator on the device
-    seeded with ``seed``.  Prompts are drawn from a CPU generator seeded
-    with ``seed + 1``, so they do not depend on the device.  ``device``:
+    seeded with ``seed``.  Prompts, and after each wave's prompts its
+    :func:`frontend_inputs`, are drawn from a CPU generator seeded with
+    ``seed + 1``, so they do not depend on the device.  ``device``:
     None is the CUDA card (``RuntimeError`` without one), ``"cpu"`` runs
     the plain PyTorch versions.  Raises ``RuntimeError`` on non-finite
     logits."""
@@ -97,12 +118,15 @@ def serve_lm(arch: ArchConfig, *, batch: int, prompt_len: int, gen_len: int,
             seed), dtype)
     cache_len = prompt_len + gen_len
     prompt_gen = torch.Generator().manual_seed(seed + 1)
-    res = ServeResult([], [], [], [], 0.0, 0)
+    res = ServeResult([], [], [], [], [], 0.0, 0)
     for _ in range(waves):
         prompts = torch.randint(0, arch.vocab_size, (batch, prompt_len),
                                 generator=prompt_gen)
+        extras = frontend_inputs(arch, batch, prompt_gen)
+        inputs = {"tokens": prompts.to(dev),
+                  **{k: v.to(dev, dtype) for k, v in extras.items()}}
         t0 = _clock(dev)
-        logits, cache = lm_prefill(params, arch, {"tokens": prompts.to(dev)},
+        logits, cache = lm_prefill(params, arch, inputs,
                                    cache_len=cache_len, dtype=dtype)
         tok = torch.argmax(logits, dim=-1)
         t1 = _clock(dev)
@@ -117,6 +141,7 @@ def serve_lm(arch: ArchConfig, *, batch: int, prompt_len: int, gen_len: int,
         if not bool(torch.isfinite(all_logits).all()):
             raise RuntimeError("non-finite logits")
         res.prompts.append(prompts)
+        res.extras.append(extras)
         res.tokens.append(torch.stack(outs, dim=1))
         res.logits.append(all_logits)
         res.prefill_s.append(t1 - t0)

@@ -1,11 +1,13 @@
 """Attention: MHA/GQA/MQA with RoPE, bias, qk-norm and sliding window;
-full-sequence (prefill) and single-token (decode) paths — the twins of
-``repro.models.attention`` (cross-attention is not ported yet).
+causal, bidirectional and cross variants; full-sequence (prefill) and
+single-token (decode) paths — the twins of ``repro.models.attention``.
 
 Full-sequence self-attention goes through the CUDA flash-attention
 kernel (``kernels/flash_attention``) when ``use_flash`` is set, the call
 passes no per-layer window, the queries are the keys and there are at
-least 128 of them — the reference's route condition.  Otherwise it takes
+least 128 of them — the reference's route condition (whisper's
+bidirectional encoder takes it too; cross-attention, whose queries are
+not its keys, does not).  Otherwise it takes
 the query-chunked plain path, the counterpart of the reference's XLA
 path: only a (Cq, Sk) block of scores exists at a time.  Decode
 attention is plain PyTorch, as in the reference.
@@ -175,3 +177,38 @@ def attn_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int,
     y = torch.einsum("bshk,hkd->bsd", out.reshape(b, 1, hq, hd),
                      p["wo"].to(x.dtype))
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (enc-dec; whisper)
+# ---------------------------------------------------------------------------
+
+def cross_attn_spec(cfg: AttnConfig) -> dict:
+    return attn_spec(cfg)
+
+
+def cross_attn(p, cfg: AttnConfig, x, enc_kv):
+    """x: (B, S, D) queries; enc_kv: (k, v), each (B, T, Hkv, hd),
+    precomputed by :func:`cross_kv`.  Not causal, no window, no RoPE."""
+    s = x.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    k, v = enc_kv
+    cfg_x = dataclasses.replace(cfg, causal=False, window=None,
+                                use_rope=False)
+    q_pos = torch.arange(s, device=x.device)
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    out = sdpa(cfg_x, q, k.to(x.dtype), v.to(x.dtype), q_pos, k_pos)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def cross_kv(p, cfg: AttnConfig, enc_out):
+    """Cross-attention k/v of the encoder output (B, T, D), computed once
+    and cached: each (B, T, Hkv, hd)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(enc_out.dtype))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k, v

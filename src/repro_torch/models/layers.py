@@ -7,8 +7,7 @@ whose leaves are tensors, either from a ``torch.Generator`` or, as the
 reference does, from a JAX key through the threefry twin.  The layer
 functions take such a tree (or any mapping with the same keys, such as
 :meth:`Params.tree`'s plain dicts) and tensors in the reference's
-layouts.  ``layernorm`` and ``gelu_mlp`` are not ported yet (ROADMAP
-queue 1 #8).
+layouts.
 """
 from __future__ import annotations
 
@@ -158,16 +157,39 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps)).to(dt) * p["scale"].to(dt)
 
 
+def layernorm_spec(d: int):
+    return {"scale": ParamSpec((d,), init="ones"),
+            "bias": ParamSpec((d,), init="zeros")}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """In float32, or float64 for a float64 ``x``; the (biased) variance
+    over the last axis, as ``jnp.var``."""
+    dt = x.dtype
+    x32 = x.to(torch.promote_types(dt, torch.float32))
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * p["scale"].to(dt) + p["bias"].to(dt)
+
+
 # ---------------------------------------------------------------------------
 # dense / embedding
 # ---------------------------------------------------------------------------
 
-def dense_spec(d_in: int, d_out: int):
-    return {"w": ParamSpec((d_in, d_out))}
+def dense_spec(d_in: int, d_out: int, bias: bool = False,
+               scale: float | None = None):
+    spec = {"w": ParamSpec((d_in, d_out), scale=scale)}
+    if bias:
+        spec["b"] = ParamSpec((d_out,), init="zeros")
+    return spec
 
 
 def dense(p, x):
-    return x @ p["w"].to(x.dtype)
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def embedding_spec(vocab: int, d: int):
@@ -195,6 +217,17 @@ def swiglu_spec(d: int, d_ff: int):
 def swiglu(p, x):
     return dense(p["down"], torch.nn.functional.silu(dense(p["gate"], x))
                  * dense(p["up"], x))
+
+
+def gelu_mlp_spec(d: int, d_ff: int, bias: bool = True):
+    return {"up": dense_spec(d, d_ff, bias=bias),
+            "down": dense_spec(d_ff, d, bias=bias)}
+
+
+def gelu_mlp(p, x):
+    """``jax.nn.gelu``'s default form: the tanh approximation."""
+    return dense(p["down"], torch.nn.functional.gelu(dense(p["up"], x),
+                                                     approximate="tanh"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,24 @@
-"""LM assembly: ArchConfig -> parameter spec -> prefill / decode, the twin
-of ``repro.models.lm`` for dense attention models.
+"""LM assembly: ArchConfig -> parameter spec -> train / prefill / decode,
+the twin of ``repro.models.lm`` for dense attention models, whisper's
+encoder-decoder and the vision-prefix model.
 
 A model is a *plan*: an ordered list of segments, each a run of
 identical layers.  The reference scans stacked parameters; the port keeps
-each segment as a list of per-layer :class:`~repro_torch.models.layers.
-Params` modules and loops over them in Python.
+each segment, and the encoder's layers, as a list of per-layer
+:class:`~repro_torch.models.layers.Params` modules and loops over them in
+Python.
 
 Paths:
   lm_loss(params, arch, batch)                -> scalar (train objective)
   lm_prefill(params, arch, batch, cache_len)  -> (logits_last, cache)
   lm_decode(params, arch, token, cache)       -> (logits, cache)
+
+``batch`` holds ``tokens`` (and ``labels`` for the loss), plus the
+frontend stubs' inputs: ``frames`` (B, F, d_model) for an encoder-decoder
+(``arch.enc_dec``: whisper), ``images`` (B, vision_tokens, d_frontend)
+for a vision model (phi-3-vision), projected by ``img_proj`` and
+prepended to the tokens: the prefix shifts positions and the cache's
+length, and takes no labels.
 
 The vocabulary readout of ``lm_loss`` is sequence-chunked
 (:func:`chunked_ce`): the (B, S, V) logits tensor is never materialised.
@@ -20,13 +29,15 @@ does in the reference.  ``params`` may be a :class:`~repro_torch.models.
 layers.Params` module or its plain tree (:meth:`Params.tree`).
 
 Where ``arch.window`` is None every attention layer is global and is
-given no window, so ``use_flash_attention`` routes its full-sequence
-attention through the CUDA kernel.  (The reference passes each layer a
+given no window, and a windowed arch's global layers (gemma3's every
+sixth) are given None too, so ``use_flash_attention`` routes their
+full-sequence attention, and the encoder's bidirectional attention,
+through the CUDA kernel.  (The reference passes each decoder layer a
 window of 0 in that case, which keeps its Pallas kernel off every
-model's train and serve path: ROADMAP queue 3.)  The kernel has no
-backward pass, so training keeps ``use_flash_attention=False`` (the
-reference's default, and its trainer's).  MTP, frontends, the encoder
-and the other block kinds are not ported yet (ROADMAP queue 1 #8).
+model's decoder: ROADMAP queue 3.)  The kernel has no backward pass, so
+training keeps ``use_flash_attention=False`` (the reference's default,
+and its trainer's).  MTP, MoE, MLA and the Mamba / xLSTM kinds are not
+ported yet (ROADMAP queue 1 #8).
 """
 from __future__ import annotations
 
@@ -40,9 +51,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.distributed import resolve_device
 from repro_torch.models import blocks as blk
+from repro_torch.models.attention import cross_kv
 from repro_torch.models.layers import (
     ParamSpec,
     Params,
+    dense,
+    dense_spec,
     embed,
     embedding_spec,
     init_params,
@@ -125,10 +139,11 @@ class Segment:
 
 def build_plan(arch: ArchConfig) -> list[Segment]:
     if (arch.block_pattern != "attn" or arch.use_mla or arch.moe_experts
-            or arch.enc_dec or arch.vision_tokens or arch.mtp):
-        raise NotImplementedError(f"{arch.name}: only dense attention "
-                                  f"models are ported; the rest is {_LATER}")
-    return [Segment("attn", arch.n_layers)]
+            or arch.mtp):
+        raise NotImplementedError(f"{arch.name}: only attention models "
+                                  f"without MoE, MLA or MTP are ported; the "
+                                  f"rest is {_LATER}")
+    return [Segment("attn", arch.n_layers, cross=arch.enc_dec)]
 
 
 def layer_windows(arch: ArchConfig, seg_start: int, n: int
@@ -155,6 +170,14 @@ def model_spec(arch: ArchConfig) -> dict:
         seg.name: [blk.attn_block_spec(arch, moe=seg.moe, cross=seg.cross,
                                        d_ff=seg.d_ff)] * seg.n
         for seg in build_plan(arch)}
+    if arch.enc_dec:
+        spec["encoder"] = {
+            "pos": ParamSpec((arch.n_frames, arch.d_model), scale=0.02),
+            "layers": [blk.attn_block_spec(arch)] * arch.n_enc_layers,
+            "norm": blk._norm_spec(arch),
+        }
+    if arch.vision_tokens:
+        spec["img_proj"] = dense_spec(arch.d_frontend, arch.d_model)
     spec["final_norm"] = blk._norm_spec(arch)
     if not arch.tie_embeddings:
         spec["lm_head"] = ParamSpec((arch.d_model, arch.vocab_size),
@@ -183,9 +206,10 @@ def load_reference_params(tree, device=None) -> Params:
     """The port's parameters from the JAX package's parameter tree as
     numpy arrays (``jax.tree.map(np.asarray, params)``), so that both
     packages compute the same thing.  The reference stacks each segment's
-    layers on a leading axis (``segments/seg0/attn/wq`` is (L, d, Hq, hd));
-    here they become a list of L per-layer trees.  ``device``: None is the
-    CUDA card (``RuntimeError`` without one), ``"cpu"`` the CPU."""
+    layers, and the encoder's, on a leading axis
+    (``segments/seg0/attn/wq`` is (L, d, Hq, hd)); here they become lists
+    of L per-layer trees.  ``device``: None is the CUDA card
+    (``RuntimeError`` without one), ``"cpu"`` the CPU."""
     dev = resolve_device(device)
 
     def convert(t, i=None):
@@ -194,14 +218,40 @@ def load_reference_params(tree, device=None) -> Params:
         a = np.asarray(t)
         return torch.tensor(a if i is None else a[i], device=dev)
 
-    out = {k: convert(v) for k, v in tree.items() if k != "segments"}
-    out["segments"] = {}
-    for name, seg in tree["segments"].items():
-        first = seg
+    def layers(stacked):
+        first = stacked
         while isinstance(first, dict):
             first = next(iter(first.values()))
-        out["segments"][name] = [convert(seg, i) for i in range(len(first))]
+        return [convert(stacked, i) for i in range(len(first))]
+
+    out = {k: convert(v) for k, v in tree.items()
+           if k not in ("segments", "encoder")}
+    out["segments"] = {name: layers(seg)
+                       for name, seg in tree["segments"].items()}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {k: convert(v) for k, v in enc.items()
+                          if k != "layers"}
+        out["encoder"]["layers"] = layers(enc["layers"])
     return Params(out)
+
+
+# ---------------------------------------------------------------------------
+# encoder (whisper backbone; frame embeddings from the stub frontend)
+# ---------------------------------------------------------------------------
+
+def encode_frames(params, arch: ArchConfig, frames):
+    """frames: (B, F, D) precomputed frame embeddings -> the encoder's
+    output (B, F, D): learned positions, then bidirectional attention
+    blocks (global: ``use_flash_attention`` routes them to the kernel),
+    then the encoder's norm."""
+    enc = params["encoder"]
+    x = frames + enc["pos"].to(frames.dtype)[None, :frames.shape[1]]
+    for pl in enc["layers"]:
+        def body(xc, pl=pl):
+            return blk.attn_block_train(pl, arch, xc, causal=False)[0]
+        x = _grad_checkpoint(body, x) if arch.remat else body(x)
+    return blk._norm(arch, enc["norm"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -216,17 +266,31 @@ def _grad_checkpoint(fn, *args):
     return fn(*args)
 
 
-def forward_hidden(params, arch: ArchConfig, x):
-    """(B, S, D) -> (B, S, D) through all segments and the final norm.
-    Returns (h, aux); ``aux`` (the MoE balance loss) is 0.0 for the dense
-    blocks ported."""
+def _cross_kvs(params, arch: ArchConfig, seg: Segment, enc_out):
+    """Each layer's cross-attention k/v of ``enc_out`` (None per layer
+    when the segment has no cross-attention or there is no encoder
+    output)."""
+    layers = params["segments"][seg.name]
+    if not seg.cross or enc_out is None:
+        return [None] * len(layers)
+    cfg = blk.attn_cfg(arch, causal=False)
+    return [cross_kv(pl["xattn"], cfg, enc_out) for pl in layers]
+
+
+def forward_hidden(params, arch: ArchConfig, x, enc_out=None):
+    """(B, S, D) -> (B, S, D) through all segments and the final norm,
+    cross-attending to ``enc_out`` (B, F, D) in a cross segment.  Returns
+    (h, aux); ``aux`` (the MoE balance loss) is 0.0 for the blocks
+    ported."""
     aux_total = 0.0
     layer_idx = 0
     for seg in build_plan(arch):
         wins = layer_windows(arch, layer_idx, seg.n)
-        for pl, w in zip(params["segments"][seg.name], wins):
-            def body(xc, pl=pl, w=w):
-                return blk.attn_block_train(pl, arch, xc, window=w)[0]
+        for pl, w, ekv in zip(params["segments"][seg.name], wins,
+                              _cross_kvs(params, arch, seg, enc_out)):
+            def body(xc, pl=pl, w=w, ekv=ekv):
+                return blk.attn_block_train(pl, arch, xc, window=w,
+                                            enc_kv=ekv)[0]
             x = _grad_checkpoint(body, x) if arch.remat else body(x)
         layer_idx += seg.n
     return blk._norm(arch, params["final_norm"], x), aux_total
@@ -271,17 +335,23 @@ def chunked_ce(h, table, labels, chunk: int, transpose: bool):
 # ---------------------------------------------------------------------------
 
 def lm_loss(params, arch: ArchConfig, batch, dtype=torch.bfloat16):
-    """batch: tokens (B, S), labels (B, S) integer tensors (-1 = ignore).
-    Activations in ``dtype``; the readout in float32 (float64 when
-    ``dtype`` is float64).  Returns a 0-d tensor.  MTP, frontends, the
-    encoder and the other block kinds raise ``NotImplementedError``."""
+    """batch: tokens (B, S), labels (B, S) integer tensors (-1 = ignore),
+    plus ``frames`` / ``images`` for the frontend stubs (the image
+    prefix takes label -1).  Activations in ``dtype``; the readout in
+    float32 (float64 when ``dtype`` is float64).  Returns a 0-d tensor.
+    MTP and the other block kinds raise ``NotImplementedError``."""
     build_plan(arch)
-    x = _embed_inputs(params, arch, batch, dtype)
-    h, aux = forward_hidden(params, arch, x)
+    x, prefix = _embed_inputs(params, arch, batch, dtype)
+    enc_out = None
+    if arch.enc_dec:
+        enc_out = encode_frames(params, arch, batch["frames"].to(dtype))
+    h, aux = forward_hidden(params, arch, x, enc_out)
+    labels = batch["labels"]
+    if prefix:
+        labels = F.pad(labels, (prefix, 0), value=-1)
     tie = arch.tie_embeddings or "lm_head" not in params
     table = params["embed"]["table"] if tie else params["lm_head"]
-    loss = chunked_ce(h, table, batch["labels"], arch.loss_chunk,
-                      transpose=tie)
+    loss = chunked_ce(h, table, labels, arch.loss_chunk, transpose=tie)
     return loss + aux
 
 
@@ -289,13 +359,25 @@ def lm_loss(params, arch: ArchConfig, batch, dtype=torch.bfloat16):
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, arch: ArchConfig, batch, dtype):
-    """Token embeddings (B, S, D) in ``dtype``; frontends are not ported."""
-    x = embed(params["embed"], batch["tokens"]).to(dtype)
+def _embed_tokens(params, arch: ArchConfig, tokens, dtype):
+    x = embed(params["embed"], tokens).to(dtype)
     if arch.embed_scale:
         x = x * torch.sqrt(torch.tensor(arch.d_model, dtype=dtype,
                                         device=x.device))
     return x
+
+
+def _embed_inputs(params, arch: ArchConfig, batch, dtype):
+    """(x, prefix): token embeddings in ``dtype``, after the projected
+    image tokens when ``arch.vision_tokens`` (then ``prefix`` is their
+    number, else 0)."""
+    x = _embed_tokens(params, arch, batch["tokens"], dtype)
+    prefix = 0
+    if arch.vision_tokens:
+        img = dense(params["img_proj"], batch["images"].to(dtype))
+        x = torch.cat([img, x], dim=1)
+        prefix = img.shape[1]
+    return x, prefix
 
 
 def _readout(params, arch: ArchConfig, h):
@@ -309,18 +391,28 @@ def lm_prefill(params, arch: ArchConfig, batch, cache_len: int,
                dtype=torch.bfloat16):
     """Prompt forward; returns (last-position logits (B, V) float32, cache).
     The cache holds each segment's list of per-layer (k, v), each
-    (B, cache_len, Hkv, hd), and ``"pos"``, the prompt length."""
-    x = _embed_inputs(params, arch, batch, dtype)
+    (B, cache_len + prefix, Hkv, hd) with ``prefix`` the image tokens, a
+    cross segment's per-layer cross-attention (k, v) of the encoder
+    output under ``<segment>_cross``, and ``"pos"``, the prefix and
+    prompt length."""
+    x, prefix = _embed_inputs(params, arch, batch, dtype)
+    enc_out = None
+    if arch.enc_dec:
+        enc_out = encode_frames(params, arch, batch["frames"].to(dtype))
     cache: dict[str, Any] = {}
     layer_idx = 0
+    total_len = cache_len + prefix
     for seg in build_plan(arch):
         wins = layer_windows(arch, layer_idx, seg.n)
+        ekvs = _cross_kvs(params, arch, seg, enc_out)
         kvs = []
-        for pl, w in zip(params["segments"][seg.name], wins):
-            x, _, kv = blk.attn_block_prefill(pl, arch, x, cache_len,
-                                              window=w)
+        for pl, w, ekv in zip(params["segments"][seg.name], wins, ekvs):
+            x, _, kv = blk.attn_block_prefill(pl, arch, x, total_len,
+                                              window=w, enc_kv=ekv)
             kvs.append(kv)
         cache[seg.name] = kvs
+        if seg.cross and enc_out is not None:
+            cache[seg.name + "_cross"] = ekvs
         layer_idx += seg.n
     h = blk._norm(arch, params["final_norm"], x[:, -1:])
     cache["pos"] = x.shape[1]
@@ -331,17 +423,22 @@ def lm_decode(params, arch: ArchConfig, token, cache, dtype=torch.bfloat16):
     """One decode step. token: (B,) integers.  Returns (logits (B, V)
     float32, cache); the cache's tensors are updated in place."""
     pos = cache["pos"]
-    x = _embed_inputs(params, arch, {"tokens": token[:, None]}, dtype)
+    x = _embed_tokens(params, arch, token[:, None], dtype)
     new_cache: dict[str, Any] = {"pos": pos + 1}
     layer_idx = 0
     for seg in build_plan(arch):
         wins = layer_windows(arch, layer_idx, seg.n)
+        cross = seg.name + "_cross"
+        ekvs = cache.get(cross, [None] * seg.n)
         kvs = []
-        for pl, kv, w in zip(params["segments"][seg.name], cache[seg.name],
-                             wins):
-            x, kv = blk.attn_block_decode(pl, arch, x, kv, pos, window=w)
+        for pl, kv, w, ekv in zip(params["segments"][seg.name],
+                                  cache[seg.name], wins, ekvs):
+            x, kv = blk.attn_block_decode(pl, arch, x, kv, pos, window=w,
+                                          enc_kv=ekv)
             kvs.append(kv)
         new_cache[seg.name] = kvs
+        if cross in cache:
+            new_cache[cross] = ekvs
         layer_idx += seg.n
     h = blk._norm(arch, params["final_norm"], x)
     return _readout(params, arch, h)[:, 0], new_cache

@@ -77,6 +77,35 @@ def test_plain_matches_jax_flash_sdpa(b, s, hq, hkv, hd, causal, window, dt):
                                                      window)), atol=TOL[dt])
 
 
+@pytest.mark.parametrize("b,s,hq,hkv", [(2, 256, 4, 4), (1, 200, 4, 2),
+                                       (1, 160, 6, 1)])
+def test_head_dim_96_matches_jax_flash_sdpa(b, s, hq, hkv):
+    """hd 96, phi-3-vision's (3,072 / 32), causal, in float32: the plain
+    version against the reference wrapper in interpret mode and against
+    the reference's oracle within 1e-5 (MHA, GQA off the block length,
+    MQA)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(s + hq, b, s, hq, hkv, 96),
+                                       "float32")
+    want = jax_flash_sdpa(jq, jk, jv, causal=True, block_q=64, block_k=64)
+    got = ops.flash_sdpa(tq, tk, tv, causal=True)
+    assert got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+    np.testing.assert_allclose(_np(got), _np(_jax_oracle(jq, jk, jv, True,
+                                                         0)), atol=1e-5)
+
+
+def test_non_causal_whisper_encoder_length_matches_the_oracle():
+    """Whisper's encoder: bidirectional attention over S = 1,500 frames
+    at hd 64 (not a multiple of either tile): the plain version against
+    the reference's ``flash_attention_ref`` (the reference wrapper leaves
+    its 36 padded keys unmasked here, ROADMAP queue 3)."""
+    arrays = _inputs(1500, 1, 1500, 2, 2, 64)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    want = _np(_jax_oracle(jq, jk, jv, False, 0))
+    got = ops.flash_sdpa(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), want, atol=1e-5)
+
+
 @pytest.mark.parametrize("s", [100, 160])
 def test_non_causal_off_block_lengths_match_the_oracles(s):
     """S not a multiple of the blocks, causal=False: the port matches both

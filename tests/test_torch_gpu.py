@@ -612,6 +612,49 @@ def test_lm_prefill_routes_every_layer_through_the_kernel(cuda):
     assert float((got - want).abs().max()) <= 2e-4
 
 
+@pytest.mark.parametrize("name,kw,s,calls", [
+    ("codeqwen1.5-7b", {}, 160, 4),
+    ("granite-34b", {}, 160, 4),
+    ("gemma3-27b", {"n_layers": 6}, 160, 1),
+    ("whisper-medium", {"n_frames": 200}, 130, 6),
+    ("phi-3-vision-4.2b", {"head_dim": 96}, 128, 4)])
+def test_zoo_prefill_routes_global_layers_through_the_kernel(cuda, name, kw,
+                                                             s, calls):
+    """reduced() of the zoo beyond qwen2, the flash route on: one launch
+    for every global full-sequence self-attention (gemma's sixth layer,
+    whisper's two encoder layers over 200 frames, phi-3 at hd 96 after
+    its 4 image tokens), and the same logits as the chunked plain
+    attention on the card, prefill and two decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import frontend_inputs
+    from repro_torch.models import init_model, lm_decode, lm_prefill
+
+    arch = dataclasses.replace(reduced(get_arch(name)), **kw,
+                               use_flash_attention=True)
+    params = init_model(arch, torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, arch.vocab_size, (2, s),
+                                     generator=gen),
+             **frontend_inputs(arch, 2, gen)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    outs = []
+    for flash_on in (True, False):
+        a = dataclasses.replace(arch, use_flash_attention=flash_on)
+        flash.launches = 0
+        logits, cache = lm_prefill(params, a, batch, s + 2,
+                                   dtype=torch.float32)
+        assert flash.launches == (calls if flash_on else 0)
+        steps = [logits]
+        for _ in range(2):
+            logits, cache = lm_decode(params, a, logits.argmax(-1), cache,
+                                      dtype=torch.float32)
+            steps.append(logits)
+        outs.append(torch.stack(steps))
+    assert float((outs[0] - outs[1]).abs().max()) <= 2e-4
+
+
 # ---------------------------------------------------------------------------
 # the R-restart popstep launch, meshes and the batched engine on the card
 # ---------------------------------------------------------------------------
@@ -758,15 +801,16 @@ def test_lm_loss_and_gradients_on_card_match_cpu(cuda):
 def test_subspace_objective_on_card_matches_cpu(cuda):
     """70 children across the search box (losses ~50-135: z = +-1 moves
     the weights far) on the card and on the CPU: a whole model's float32
-    in two summation orders, so the bar is the whole-model bar of
-    tests/test_models.py (2e-4 relative)."""
+    in two summation orders.  Both computations are deterministic: the
+    maximum was 1.004e-05 relative in each of two runs on an NVIDIA H100
+    80GB HBM3 at 700 W, so the bar is twice that."""
     z = torch.rand(70, 24, generator=torch.Generator().manual_seed(0)) * 2 - 1
     obj = objectives.get("subspace-lm:qwen2-1.5b")
     want = obj.fn(z).numpy()
     got = obj.fn(z.to(cuda)).cpu().numpy()
     rel = float(np.max(np.abs(got - want) / np.abs(want)))
     print(f"subspace objective, card vs CPU: max relative {rel:.3e}")
-    assert rel <= 2e-4, rel
+    assert rel <= 2e-5, rel
 
 
 def test_subspace_problem_takes_the_plain_step_on_card(cuda):

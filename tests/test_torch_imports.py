@@ -57,6 +57,17 @@ def test_core_all_is_a_subset_of_the_reference():
         assert hasattr(repro_torch.core, name), name
 
 
+@pytest.mark.parametrize("name", ["apply_subspace", "materialize_winner"])
+def test_core_exports_subspace_dgo(name):
+    """The reference's ``repro.core`` exports both
+    (``src/repro/core/__init__.py:40``); so does the port's."""
+    import repro_torch.core
+    from repro_torch.core import subspace
+
+    assert name in repro_torch.core.__all__
+    assert getattr(repro_torch.core, name) is getattr(subspace, name)
+
+
 KERNELS = ("popstep", "graycode", "fixedpoint", "popmin", "flash_attention")
 
 
@@ -89,6 +100,9 @@ def test_every_kernel_wrapper_imports_first(name):
 
 
 ZOO = ("repro_torch.configs", "repro_torch.configs.qwen2_1_5b",
+       "repro_torch.configs.codeqwen1_5_7b", "repro_torch.configs.gemma3_27b",
+       "repro_torch.configs.granite_34b", "repro_torch.configs.whisper_medium",
+       "repro_torch.configs.phi3_vision_4_2b", "repro_torch.configs.shapes",
        "repro_torch.models", "repro_torch.models.layers",
        "repro_torch.models.attention", "repro_torch.models.blocks",
        "repro_torch.models.lm", "repro_torch.launch",

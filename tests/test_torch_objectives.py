@@ -62,8 +62,10 @@ def test_registry_mirrors_reference():
     ref_names = tuple(n for n in jobj.names() if ":" not in n)
     assert tuple(n for n in tobj.names() if ":" not in n) == ref_names
     zoo = [n for n in tobj.names() if ":" in n]
-    assert zoo == ["subspace-lm:qwen2-1.5b"]
-    assert set(zoo) <= set(jobj.names())
+    assert zoo == [n for n in jobj.names() if n.split(":")[-1] in (
+        "whisper-medium", "phi-3-vision-4.2b", "codeqwen1.5-7b",
+        "gemma3-27b", "granite-34b", "qwen2-1.5b")]
+    assert len(zoo) == 6
     for name in ref_names:
         assert tobj.accepts_n(name) == jobj.accepts_n(name)
     for name, kw in [("rastrigin", {}), ("rastrigin", {"n": 2}),
@@ -108,3 +110,46 @@ def test_load_reference_state_carries_the_data():
     assert tobj.load_reference_state("ackley", {}, n=3).encoding.n_vars == 3
     with pytest.raises(ValueError, match="takes arrays"):
         tobj.load_reference_state("remote_sensing", {"x": arrays["x"]})
+
+
+# ---------------------------------------------------------------------------
+# the networks' public helpers (xor_forward, rs_unpack, rs_forward,
+# rs_accuracy)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_xor_forward_matches_reference(seed):
+    """On the four XOR inputs and on a batch of random ones."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(-8, 8, 8).astype(np.float32)
+    for x in (tobj.XOR_X, rng.standard_normal((16, 2)).astype(np.float32)):
+        want = np.asarray(jobj.xor_forward(jnp.asarray(w), jnp.asarray(x)))
+        got = tobj.xor_forward(torch.as_tensor(w), torch.as_tensor(x))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_rs_unpack_matches_reference():
+    w = np.arange(tobj.RS_NVARS, dtype=np.float32)
+    for got, want in zip(tobj.rs_unpack(torch.as_tensor(w)),
+                         jobj.rs_unpack(jnp.asarray(w))):
+        assert tuple(got.shape) == want.shape
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rs_forward_and_accuracy_match_reference(seed):
+    """Logits of the reference's 256 samples at rtol = atol = 1e-5, and
+    the accuracy of random weights and of weights that learnt a little."""
+    arrays = reference_rs_arrays()
+    x, y = arrays["x"], arrays["y"]
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(-1, 1, tobj.RS_NVARS).astype(np.float32)
+    want = np.asarray(jobj.rs_forward(jnp.asarray(w), jnp.asarray(x)))
+    got = tobj.rs_forward(torch.as_tensor(w), torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    acc_t = tobj.rs_accuracy(torch.as_tensor(w), torch.tensor(x),
+                             torch.tensor(y))
+    acc_j = jobj.rs_accuracy(jnp.asarray(w), jnp.asarray(x), jnp.asarray(y))
+    assert acc_t.dtype == torch.float32 and float(acc_t) == float(acc_j)
+    assert 0.0 <= float(acc_t) <= 1.0

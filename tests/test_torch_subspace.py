@@ -163,7 +163,7 @@ def test_registry_has_the_ports_zoo():
     with pytest.raises(NotImplementedError, match="queue 1 #8"):
         tobj.get("subspace-lm:xlstm-125m")
     with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        Problem.get("subspace-lm:gemma3-27b", d=4)
+        Problem.get("subspace-lm:zamba2-1.2b", d=4)
 
 
 def test_tuning_problems_bucket_by_semantic_signature(tiny_problem,
