@@ -194,6 +194,28 @@ Phases (any failure exits non-zero; none is caught):
              finite losses; (e) ``solve(subspace-lm:whisper-medium,
              Fused(), max_iters=4)`` on the card: best_f finite, no
              popstep launch.
+11. zoo, part 2 — the last four architectures (``ZOO2``), the same way,
+             one at a time, each freed before the next: xlstm-125m (all
+             12 layers, B = 4, prompt 1,024: the chunked mLSTM and the
+             sLSTM's loop over the prompt), zamba2-1.2b (all 38 Mamba2
+             layers and the shared attention block's 7 applications,
+             B = 4, prompt 1,024), deepseek-v2-236b (its first 3 of 60
+             layers: 1 dense + 2 MoE, B = 2, prompt 512) and
+             deepseek-v3-671b (its first 4 of 61: 3 dense + 1 MoE, MTP
+             weights allocated, B = 1, prompt 512), f32: (a)
+             ``serve_lm`` with the flash route on, 8 tokens, 2 waves, the
+             count 0 around it (``ZOO2_LAUNCHES`` a prefill: zamba2's
+             shared block, none for the others), the MoE pairs dropped
+             a wave; (b) the same weights through the chunked plain
+             attention (for the three models with no kernel on their
+             path the same computation again: it is deterministic),
+             logits and tokens as in phase 10; (c) zamba2's first q/k/v
+             through both kernels against the plain version, timed beside
+             the bound and SDPA; (d) ``run_training`` of ``reduced()`` of
+             each, 2 steps, finite losses, deepseek-v3's MTP term in
+             each; (e) ``solve(subspace-lm:xlstm-125m, Fused(),
+             max_iters=4)`` on the card: best_f finite, no popstep
+             launch.
 
 The last lines are the card's name and power limit, a JSON line with
 every kernel's measurements (``popstep`` — its launches summed over
@@ -202,8 +224,8 @@ phases 4, 4b and 8, each path's count under ``by_path`` —, ``popstep_fold``
 ``popstep``'s launch, timed through the check entry —, ``graycode``,
 ``fixedpoint``, ``popmin``, ``popmin_fold`` — merged into ``popmin``'s
 launch, timed through the check entry —, ``flash_attention`` — f32, its
-launches summed over phases 7 and 10 (``by_path``), phase 10's shapes
-under ``by_model`` — and ``flash_attention_bf16``; each entry's
+launches summed over phases 7, 10 and 11 (``by_path``), the shapes of
+phases 10 and 11 under ``by_model`` — and ``flash_attention_bf16``; each entry's
 ``clock`` is ``"profiler"`` when every one of its times is the
 profiler's device time over whole records, else it names each time that
 is not), and
@@ -3278,22 +3300,43 @@ def time_zoo_shape(q, k, v, kw, dev) -> dict:
     return out
 
 
+def _count_moe_drops(moe):
+    """Wrap ``moe._route_group`` to keep, a call, its token count and its
+    dropped pairs (a device tensor: no synchronisation); returns (the
+    list, a function that puts the real one back)."""
+    real = moe._route_group
+    seen: list = []
+
+    def counted(p, cfg, xt, capacity):
+        out = real(p, cfg, xt, capacity)
+        seen.append((xt.shape[0], (~out[1][4]).sum()))
+        return out
+
+    moe._route_group = counted
+
+    def restore():
+        moe._route_group = real
+    return seen, restore
+
+
 def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
-    """10a-c for one model: ``serve_lm`` through the kernel, its count set
-    to 0 just before and read just after; the same weights, prompts and
-    stub inputs through the chunked plain attention (prefill logits
-    within 1e-3 x max |logit|, tokens equal but at near-ties); one
-    prefill under the profiler; the kernel at each shape the model gave
-    it (the first call of each (S, causal))."""
+    """10a-c and 11a-c for one model: ``serve_lm`` through the kernel, its
+    count set to 0 just before and read just after (an MoE model's
+    dropped pairs counted); the same weights, prompts and stub inputs
+    through the chunked plain attention (prefill logits within 1e-3 x
+    max |logit|, tokens equal but at near-ties); one prefill under the
+    profiler; the kernel at each shape the model gave it (the first call
+    of each (S, causal))."""
     import dataclasses
 
     import torch
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.serve import serve_lm
-    from repro_torch.models import init_model, lm_prefill, n_params
+    from repro_torch.models import init_model, lm_prefill, moe, n_params
 
     arch = zoo_arch(name, depth)
+    per_prefill = {**ZOO_LAUNCHES, **ZOO2_LAUNCHES}[name]
     kw = dict(batch=batch, prompt_len=prompt_len, **ZOO_SERVE)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3311,12 +3354,16 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
         return real(q, k, v, **kwargs)
 
     ops.flash_sdpa = capture
+    drops, restore = _count_moe_drops(moe)
     ops.launches = 0
-    res = serve_lm(arch, params=params, **kw)       # device None: the card
-    n_launch = ops.launches
-    ops.flash_sdpa = real
+    try:
+        res = serve_lm(arch, params=params, **kw)   # device None: the card
+        n_launch = ops.launches
+    finally:
+        ops.flash_sdpa = real
+        restore()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = ZOO_LAUNCHES[name] * kw["waves"]
+    want = per_prefill * kw["waves"]
     cut = f", first {depth} of its layers" if depth else ""
     print(f"[zoo] {name} f32 ({n_params(arch):,} parameters{cut}; drawn "
           f"in {t_init:.2f} s) B={batch} prompt {prompt_len}"
@@ -3330,6 +3377,20 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
           f"tokens in {res.decode_s:.4f} s); peak memory {peak:.2f} GiB")
     check(n_launch == want, f"zoo {name}: {n_launch} flash launches, want "
                             f"{want}")
+    dropped = None
+    if arch.moe_experts:
+        t_prefill = batch * (prompt_len + arch.vision_tokens)
+        dropped = {
+            phase: [int(sum(int(d) for t, d in drops if t == n))
+                    // kw["waves"], n * arch.moe_top_k * sum(
+                        t == n for t, _ in drops) // kw["waves"]]
+            for phase, n in (("prefill", t_prefill), ("decode", batch))}
+        print(f"[zoo] {name} MoE pairs dropped a wave (of the pairs routed, "
+              f"over its {arch.n_layers - arch.moe_dense_layers} MoE "
+              f"layers): prefill {dropped['prefill'][0]} of "
+              f"{dropped['prefill'][1]}, decode {dropped['decode'][0]} of "
+              f"{dropped['decode'][1]} (capacity factor "
+              f"{arch.moe_capacity})")
     for toks, logits in zip(res.tokens, res.logits):
         check(tuple(toks.shape) == (batch, kw["gen_len"])
               and bool(logits.isfinite().all()),
@@ -3354,21 +3415,27 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
                      f"{big:.3g}), tokens "
                      + (f"part at near-ties {parted}" if parted
                         else "identical"))
-    print(f"[zoo] {name} flash vs chunked plain attention: "
-          f"{'; '.join(notes)}")
+    print(f"[zoo] {name} flash vs chunked plain attention"
+          + ("" if per_prefill else " (no kernel on its path: the same "
+             "computation again)") + f": {'; '.join(notes)}")
 
     inputs = {"tokens": res.prompts[0].to(dev),
               **{x: t.to(dev) for x, t in res.extras[0].items()}}
     cache_len = prompt_len + kw["gen_len"]
     f32 = FLASH_KERNELS["float32"]
     prof, wall = profiled(lambda: lm_prefill(
-        params, arch, inputs, cache_len, dtype=torch.float32), f32,
-        ZOO_LAUNCHES[name], tries=ZOO_PROFILE_TRIES)
+        params, arch, inputs, cache_len, dtype=torch.float32),
+        f32 if per_prefill else None, per_prefill or None,
+        tries=ZOO_PROFILE_TRIES)
     k_us, k_n = _device_activity(prof, f32)
     all_us, _ = _device_activity(prof)
     print(f"[zoo] {name} one prefill under the profiler: wall {wall:.4f} s, "
-          f"device {all_us / 1e3:.3f} ms, of which {k_n} flash launches "
+          f"device {all_us / 1e3:.3f} ms ({all_us / 1e6 / wall:.3f} of the "
+          f"wall busy), of which {k_n} flash launches "
           f"{k_us / 1e3:.3f} ms ({k_us / max(all_us, 1e-9):.3f} of it)")
+    stats = {"peak_gib": peak, "prefill_s": res.prefill_s,
+             "decode_tokens_per_s": res.decode_tokens_per_s,
+             "device_busy": all_us / 1e6 / wall}
     del params, res, plain, inputs, prof
     torch.cuda.empty_cache()
     shapes = [time_zoo_shape(q, k, v, kwargs, dev)
@@ -3376,7 +3443,7 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
     del captured
     torch.cuda.empty_cache()
     return {"launches": n_launch, "prefill_share": k_us / max(all_us, 1e-9),
-            "shapes": shapes}
+            "shapes": shapes, "dropped": dropped, **stats}
 
 
 def phase_zoo(dev) -> dict:
@@ -3387,14 +3454,8 @@ def phase_zoo(dev) -> dict:
     finite; (e) ``solve(subspace-lm:whisper-medium, Fused(),
     max_iters=4)`` on the card: best_f finite, no popstep launch."""
     import gc
-    import shutil
-    import tempfile
 
     import torch
-
-    from repro_torch.core.solver import Fused, solve
-    from repro_torch.kernels.popstep import ops as popstep
-    from repro_torch.launch import train
 
     t_phase = time.perf_counter()
     CLOCK_NOTES.setdefault("flash_attention", []).append(
@@ -3405,32 +3466,123 @@ def phase_zoo(dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     for name in ZOO_TRAIN:
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
-        try:
-            args = train.build_argparser().parse_args(
-                ["--arch", name, *ZOO_TRAIN_ARGV, "--ckpt-dir", tmp])
-            out = train.run_training(args, device=dev)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        print(f"[zoo] run_training reduced {name}: losses {out['losses']}, "
-              f"step seconds {out['step_s']}")
-        check(len(out["losses"]) == 2
-              and all(np.isfinite(v) for v in out["losses"]),
-              f"zoo train {name}: losses {out['losses']}")
+        train_zoo_model(name, dev)
+    solve_zoo_subspace(ZOO_SUBSPACE, dev)
+    print(f"[zoo] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return by_model
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the zoo, part 2 — xLSTM, zamba2 and the two deepseek models
+# ---------------------------------------------------------------------------
+
+# (name, depth cut or None for every layer, serve_lm's batch and prompt):
+# deepseek-v2-236b is 943 GB in f32 and deepseek-v3-671b 2.69 TB, so each
+# keeps its full width and takes its leading layers: v2's dense layer and
+# 2 MoE layers (37.3 GB), v3's 3 dense layers and 1 MoE layer (63.2 GB)
+ZOO2 = (("xlstm-125m", None, 4, 1024),
+        ("zamba2-1.2b", None, 4, 1024),
+        ("deepseek-v2-236b", 3, 2, 512),
+        ("deepseek-v3-671b", 4, 1, 512))
+# flash launches a prefill: zamba2's shared block, applied before every
+# 6 of its 38 Mamba layers (7 times) without a window; xLSTM and Mamba
+# have no attention, MLA stays on the chunked plain path (q/k head_dim
+# 192, v 128), as in the reference
+ZOO2_LAUNCHES = {"xlstm-125m": 0, "zamba2-1.2b": 7, "deepseek-v2-236b": 0,
+                 "deepseek-v3-671b": 0}
+ZOO2_TRAIN = ("xlstm-125m", "zamba2-1.2b", "deepseek-v2-236b",
+              "deepseek-v3-671b")
+ZOO2_SUBSPACE = "subspace-lm:xlstm-125m"
+
+
+def train_zoo_model(name, dev) -> list:
+    """``run_training`` of ``reduced(name)`` for ``ZOO_TRAIN_ARGV``'s 2
+    steps in a temporary checkpoint directory: finite losses; for an
+    MTP model, its head's loss computed once a step, finite and positive
+    (so the term is in the loss).  Returns the losses."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    mtp = []
+    real = lm._mtp_loss
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        mtp.append(out.detach())
+        return out
+
+    lm._mtp_loss = counted
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        args = train.build_argparser().parse_args(
+            ["--arch", name, *ZOO_TRAIN_ARGV, "--ckpt-dir", tmp])
+        out = train.run_training(args, device=dev)
+    finally:
+        lm._mtp_loss = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    mtp = [float(v) for v in mtp]
+    print(f"[zoo] run_training reduced {name}: losses {out['losses']}, "
+          f"step seconds {out['step_s']}"
+          + (f"; MTP head's loss a step {mtp} (x 0.3 in the loss)"
+             if mtp else ""))
+    check(len(out["losses"]) == 2
+          and all(np.isfinite(v) for v in out["losses"]),
+          f"zoo train {name}: losses {out['losses']}")
+    if get_arch(name).mtp:
+        check(len(mtp) == 2 and all(np.isfinite(v) and v > 0 for v in mtp),
+              f"zoo train {name}: MTP losses {mtp}")
+    return out["losses"]
+
+
+def solve_zoo_subspace(spec, dev) -> None:
+    """``solve(spec, Fused(), max_iters=ZOO_SUBSPACE_ITERS)`` on the
+    card: best_f finite and no popstep launch (the objective has no
+    device form)."""
+    from repro_torch.core.solver import Fused, solve
+    from repro_torch.kernels.popstep import ops as popstep
+
     popstep.launches = popstep.fold_launches = 0
     t0 = time.perf_counter()
-    res = solve(ZOO_SUBSPACE, Fused(), seed=0, max_iters=ZOO_SUBSPACE_ITERS,
+    res = solve(spec, Fused(), seed=0, max_iters=ZOO_SUBSPACE_ITERS,
                 device=None if dev.type == "cuda" else dev)
     wall = time.perf_counter() - t0
-    print(f"[zoo] solve({ZOO_SUBSPACE}, Fused(), max_iters="
-          f"{ZOO_SUBSPACE_ITERS}) on the card: best_f {float(res.best_f)!r}, "
-          f"{res.iterations} steps, {res.extras['evaluations']} evaluations in "
-          f"{wall:.2f} s; popstep launches {popstep.launches}")
+    print(f"[zoo] solve({spec}, Fused(), max_iters={ZOO_SUBSPACE_ITERS}) "
+          f"on the card: best_f {float(res.best_f)!r}, {res.iterations} "
+          f"steps, {res.extras['evaluations']} evaluations in {wall:.2f} s; "
+          f"popstep launches {popstep.launches}")
     check(np.isfinite(float(res.best_f)) and popstep.launches == 0
           and popstep.fold_launches == 0,
-          f"zoo subspace: best_f {float(res.best_f)}, popstep launches "
-          f"{popstep.launches} + {popstep.fold_launches}")
-    print(f"[zoo] phase 10: {time.perf_counter() - t_phase:.1f} s")
+          f"zoo subspace {spec}: best_f {float(res.best_f)}, popstep "
+          f"launches {popstep.launches} + {popstep.fold_launches}")
+
+
+def phase_zoo2(dev) -> dict:
+    """Phase 11: xLSTM, zamba2 and the two deepseek models on the card.
+    (a-c) each model of ``ZOO2`` served at full width (the deepseek
+    models cut in depth), one at a time, by :func:`serve_zoo_model`;
+    (d) ``run_training`` of ``reduced()`` of each for 2 steps
+    (:func:`train_zoo_model`); (e) ``solve(subspace-lm:xlstm-125m,
+    Fused(), max_iters=4)`` on the card."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    by_model = {}
+    for name, depth, batch, prompt_len in ZOO2:
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_model[name] = serve_zoo_model(name, depth, batch, prompt_len, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ZOO2_TRAIN:
+        train_zoo_model(name, dev)
+    solve_zoo_subspace(ZOO2_SUBSPACE, dev)
+    print(f"[zoo] phase 11: {time.perf_counter() - t_phase:.1f} s")
     return by_model
 
 
@@ -3477,9 +3629,13 @@ def main() -> None:
     phase_meta(dev)
     timing_for("flash_attention")
     zoo = phase_zoo(dev)
+    zoo2 = phase_zoo2(dev)
     n_launch = sum(n for n, _ in by_path.values())
     n_fold = sum(f for _, f in by_path.values())
     zoo_launches = sum(m["launches"] for m in zoo.values())
+    zoo2_launches = sum(m["launches"] for m in zoo2.values())
+    # by_model: every model that launched the kernel in phases 10 and 11
+    zoo = {**zoo, **{n: m for n, m in zoo2.items() if m["launches"]}}
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card_line())
     source = "src/repro_torch/kernels/popstep/csrc/popstep.cu"
@@ -3545,7 +3701,7 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": f"{kernels_dir}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
-        "launches": served["launches"] + zoo_launches,
+        "launches": served["launches"] + zoo_launches + zoo2_launches,
         "max_abs_err": max(ft["max_abs_err"], served["max_abs_err"],
                            *(sh["max_abs_err"] for m in zoo.values()
                              for sh in m["shapes"])),
@@ -3553,7 +3709,8 @@ def main() -> None:
         "bound_ms": ft["serve_bound"], "bound_by": ft["serve_bound_by"],
         "library_ms": ft["serve_sdpa_f32"],
         "clock": clock_of("flash_attention"),
-        "by_path": {"serve": served["launches"], "zoo": zoo_launches},
+        "by_path": {"serve": served["launches"], "zoo": zoo_launches,
+                    "zoo2": zoo2_launches},
         "by_model": {name: {
             "launches": m["launches"], "prefill_share": m["prefill_share"],
             "shapes": [{k: sh[k] for k in (

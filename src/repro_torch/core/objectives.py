@@ -3,9 +3,7 @@
 The registry objectives of ``repro.core.objectives``, each written
 batched: ``fn`` maps a ``(B, n_vars)`` float32 tensor to ``(B,)``.  The
 model-zoo tuning family ``subspace-lm:<arch>`` (``core.subspace``) is
-registered for every architecture the port has (``configs.REGISTRY``);
-a ``subspace-lm:`` name of another reference architecture raises
-``NotImplementedError``.
+registered for every architecture of the zoo (``configs.REGISTRY``).
 
 Every registry objective also carries its *kernel form*
 (:class:`KernelForm`): the id under which ``kernels/popstep/csrc/
@@ -349,11 +347,6 @@ def _registry() -> dict:
 
 
 def _unknown(name: str) -> Exception:
-    if name.startswith(_SUBSPACE):
-        return NotImplementedError(
-            f"objective {name!r}: the port's zoo tunes "
-            f"{', '.join(k for k in names() if k.startswith(_SUBSPACE))}; "
-            f"the other architectures are ROADMAP queue 1 #8")
     return ValueError(f"unknown objective {name!r}; "
                       f"valid names: {', '.join(names())}")
 

@@ -162,10 +162,6 @@ def lm_tuning_objective(arch_name: str, *, d: int = 24, bits: int = 4,
     from repro_torch.data import lm_synthetic_batch
     from repro_torch.models.lm import init_model, lm_loss
 
-    if arch_name not in REGISTRY:
-        raise NotImplementedError(
-            f"subspace-lm:{arch_name}: the port's zoo has {list(REGISTRY)}; "
-            f"the other architectures are ROADMAP queue 1 #8")
     arch = reduced(REGISTRY[arch_name])
     if layers is not None:
         arch = dataclasses.replace(arch, n_layers=min(arch.n_layers, layers))

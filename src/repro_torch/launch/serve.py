@@ -2,7 +2,7 @@
 ``repro.launch.serve``'s ``--arch`` branch, and DGO optimization serving
 (``--dgo``), a thin CLI over ``repro_torch.serving``.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --reduced --batch 4 --prompt-len 32 --gen-len 16
 
 LM: requests arrive in waves; each wave is prefilled as a batch and

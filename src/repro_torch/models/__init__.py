@@ -1,6 +1,7 @@
 """Model zoo of the port: dense attention language models, whisper's
-encoder-decoder and the vision-prefix model (``configs.ARCH_NAMES``),
-the twins of ``repro.models``."""
+encoder-decoder, the vision-prefix model, xLSTM, the Mamba2 hybrid and
+the MLA + MoE models (``configs.ARCH_NAMES``), the twins of
+``repro.models``."""
 from repro_torch.models.lm import (
     ArchConfig,
     build_plan,

@@ -123,7 +123,7 @@ def init_params(spec_tree, source, dtype=torch.float32,
             return torch.zeros(spec.shape, dtype=dtype, device=dev)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=dev)
-        return (_std(spec) * normal(spec.shape)).to(dtype)
+        return normal(spec.shape).mul_(_std(spec)).to(dtype)
 
     if isinstance(source, torch.Generator):
         dev = source.device

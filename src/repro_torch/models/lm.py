@@ -1,6 +1,7 @@
 """LM assembly: ArchConfig -> parameter spec -> train / prefill / decode,
-the twin of ``repro.models.lm`` for dense attention models, whisper's
-encoder-decoder and the vision-prefix model.
+the twin of ``repro.models.lm`` for every architecture of the zoo:
+dense attention models, whisper's encoder-decoder, the vision-prefix
+model, xLSTM, the Mamba2 hybrid and the MLA + MoE models.
 
 A model is a *plan*: an ordered list of segments, each a run of
 identical layers.  The reference scans stacked parameters; the port keeps
@@ -32,12 +33,21 @@ Where ``arch.window`` is None every attention layer is global and is
 given no window, and a windowed arch's global layers (gemma3's every
 sixth) are given None too, so ``use_flash_attention`` routes their
 full-sequence attention, and the encoder's bidirectional attention,
-through the CUDA kernel.  (The reference passes each decoder layer a
-window of 0 in that case, which keeps its Pallas kernel off every
-model's decoder: ROADMAP queue 3.)  The kernel has no backward pass, so
+through the CUDA kernel, as does zamba2's shared attention block, which
+is given no window in the reference too.  (The reference passes every
+other decoder layer a window of 0, which keeps its Pallas kernel off
+those decoders: ROADMAP queue 3.)  The kernel has no backward pass, so
 training keeps ``use_flash_attention=False`` (the reference's default,
-and its trainer's).  MTP, MoE, MLA and the Mamba / xLSTM kinds are not
-ported yet (ROADMAP queue 1 #8).
+and its trainer's).
+
+Hybrid patterns become several segments: zamba2's shared attention
+block (one parameter tree, ``shared_attn``, applied before every
+``shared_attn_every`` Mamba layers, its output delta re-projected by
+``shared_proj``, with a KV cache of its own at each application,
+``shared<i>``), xLSTM's sLSTM interleave and DeepSeek's leading dense
+layers.  MoE layers add their load-balance loss to the objective, and
+deepseek-v3's depth-1 multi-token-prediction head (``mtp``) adds its
+weighted loss.
 """
 from __future__ import annotations
 
@@ -63,9 +73,6 @@ from repro_torch.models.layers import (
     param_count,
     unembed,
 )
-
-_LATER = "not ported yet (ROADMAP queue 1 #8)"
-
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -129,7 +136,7 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str                        # attn (the only kind ported)
+    kind: str                        # attn | mla | mamba | mlstm | slstm | shared
     n: int
     moe: bool = False
     d_ff: int | None = None          # dense-FFN override
@@ -138,12 +145,42 @@ class Segment:
 
 
 def build_plan(arch: ArchConfig) -> list[Segment]:
-    if (arch.block_pattern != "attn" or arch.use_mla or arch.moe_experts
-            or arch.mtp):
-        raise NotImplementedError(f"{arch.name}: only attention models "
-                                  f"without MoE, MLA or MTP are ported; the "
-                                  f"rest is {_LATER}")
-    return [Segment("attn", arch.n_layers, cross=arch.enc_dec)]
+    if arch.block_pattern == "xlstm":
+        segs, run, idx = [], 0, 0
+        for i in range(arch.n_layers):
+            if arch.slstm_every and (i + 1) % arch.slstm_every == 0:
+                if run:
+                    segs.append(Segment("mlstm", run, name=f"seg{idx}"))
+                    idx += 1
+                    run = 0
+                segs.append(Segment("slstm", 1, name=f"seg{idx}"))
+                idx += 1
+            else:
+                run += 1
+        if run:
+            segs.append(Segment("mlstm", run, name=f"seg{idx}"))
+        return segs
+    if arch.block_pattern == "zamba":
+        segs, idx, i = [], 0, 0
+        while i < arch.n_layers:
+            segs.append(Segment("shared", 1, name=f"shared{idx}"))
+            n = min(arch.shared_attn_every, arch.n_layers - i)
+            segs.append(Segment("mamba", n, name=f"seg{idx}"))
+            i += n
+            idx += 1
+        return segs
+    if arch.block_pattern == "mamba":
+        return [Segment("mamba", arch.n_layers)]
+    kind = "mla" if arch.use_mla else "attn"
+    if arch.moe_experts:
+        segs = []
+        if arch.moe_dense_layers:
+            segs.append(Segment(kind, arch.moe_dense_layers, moe=False,
+                                d_ff=arch.moe_d_ff_dense, name="dense"))
+        segs.append(Segment(kind, arch.n_layers - arch.moe_dense_layers,
+                            moe=True, name="moe"))
+        return segs
+    return [Segment(kind, arch.n_layers, cross=arch.enc_dec)]
 
 
 def layer_windows(arch: ArchConfig, seg_start: int, n: int
@@ -163,13 +200,25 @@ def layer_windows(arch: ArchConfig, seg_start: int, n: int
 # parameters
 # ---------------------------------------------------------------------------
 
+def _layer_spec(arch: ArchConfig, seg: Segment):
+    if seg.kind == "attn":
+        return blk.attn_block_spec(arch, moe=seg.moe, cross=seg.cross,
+                                   d_ff=seg.d_ff)
+    if seg.kind == "mla":
+        return blk.mla_block_spec(arch, moe=seg.moe, d_ff=seg.d_ff)
+    return {"mamba": blk.mamba_block_spec, "mlstm": blk.mlstm_block_spec,
+            "slstm": blk.slstm_block_spec}[seg.kind](arch)
+
+
 def model_spec(arch: ArchConfig) -> dict:
     spec: dict[str, Any] = {"embed": embedding_spec(arch.vocab_size,
                                                     arch.d_model)}
-    spec["segments"] = {
-        seg.name: [blk.attn_block_spec(arch, moe=seg.moe, cross=seg.cross,
-                                       d_ff=seg.d_ff)] * seg.n
-        for seg in build_plan(arch)}
+    spec["segments"] = {seg.name: [_layer_spec(arch, seg)] * seg.n
+                        for seg in build_plan(arch) if seg.kind != "shared"}
+    if arch.block_pattern == "zamba":
+        spec["shared_attn"] = blk.attn_block_spec(arch)
+        spec["shared_proj"] = dense_spec(arch.d_model, arch.d_model,
+                                         scale=0.02)
     if arch.enc_dec:
         spec["encoder"] = {
             "pos": ParamSpec((arch.n_frames, arch.d_model), scale=0.02),
@@ -182,6 +231,14 @@ def model_spec(arch: ArchConfig) -> dict:
     if not arch.tie_embeddings:
         spec["lm_head"] = ParamSpec((arch.d_model, arch.vocab_size),
                                     scale=0.02)
+    if arch.mtp:
+        spec["mtp"] = {
+            "proj": dense_spec(2 * arch.d_model, arch.d_model),
+            "block": (blk.mla_block_spec(arch, d_ff=arch.moe_d_ff_dense
+                                         or arch.d_ff)
+                      if arch.use_mla else blk.attn_block_spec(arch)),
+            "norm": blk._norm_spec(arch),
+        }
     return spec
 
 
@@ -208,7 +265,9 @@ def load_reference_params(tree, device=None) -> Params:
     packages compute the same thing.  The reference stacks each segment's
     layers, and the encoder's, on a leading axis
     (``segments/seg0/attn/wq`` is (L, d, Hq, hd)); here they become lists
-    of L per-layer trees.  ``device``: None is the CUDA card
+    of L per-layer trees.  The other keys (``shared_attn``,
+    ``shared_proj``, ``mtp``, ...) come across whole: zamba2's shared
+    block stays one tree.  ``device``: None is the CUDA card
     (``RuntimeError`` without one), ``"cpu"`` the CPU."""
     dev = resolve_device(device)
 
@@ -277,21 +336,51 @@ def _cross_kvs(params, arch: ArchConfig, seg: Segment, enc_out):
     return [cross_kv(pl["xattn"], cfg, enc_out) for pl in layers]
 
 
+_CELL_TRAIN = {"mamba": blk.mamba_block_train,
+               "mlstm": blk.mlstm_block_train,
+               "slstm": blk.slstm_block_train}
+_CELL_PREFILL = {"mamba": blk.mamba_block_prefill,
+                 "mlstm": blk.mlstm_block_prefill,
+                 "slstm": blk.slstm_block_prefill}
+_CELL_DECODE = {"mamba": blk.mamba_block_decode,
+                "mlstm": blk.mlstm_block_decode,
+                "slstm": blk.slstm_block_decode}
+
+
+def _layer_train(arch: ArchConfig, seg: Segment, pl, x, window, enc_kv):
+    """One layer of a segment on the train path: (x, aux)."""
+    if seg.kind == "attn":
+        return blk.attn_block_train(pl, arch, x, window=window, moe=seg.moe,
+                                    enc_kv=enc_kv)
+    if seg.kind == "mla":
+        return blk.mla_block_train(pl, arch, x, moe=seg.moe)
+    return _CELL_TRAIN[seg.kind](pl, arch, x)
+
+
+def _shared(params, arch: ArchConfig, x, y):
+    """zamba2's shared block output y folded in: x + proj(y - x)."""
+    return x + dense(params["shared_proj"], y - x)
+
+
 def forward_hidden(params, arch: ArchConfig, x, enc_out=None):
     """(B, S, D) -> (B, S, D) through all segments and the final norm,
     cross-attending to ``enc_out`` (B, F, D) in a cross segment.  Returns
-    (h, aux); ``aux`` (the MoE balance loss) is 0.0 for the blocks
-    ported."""
+    (h, aux); ``aux`` is the MoE layers' summed balance loss (0.0
+    without MoE)."""
     aux_total = 0.0
     layer_idx = 0
     for seg in build_plan(arch):
+        if seg.kind == "shared":
+            y, _ = blk.attn_block_train(params["shared_attn"], arch, x)
+            x = _shared(params, arch, x, y)
+            continue
         wins = layer_windows(arch, layer_idx, seg.n)
         for pl, w, ekv in zip(params["segments"][seg.name], wins,
                               _cross_kvs(params, arch, seg, enc_out)):
             def body(xc, pl=pl, w=w, ekv=ekv):
-                return blk.attn_block_train(pl, arch, xc, window=w,
-                                            enc_kv=ekv)[0]
-            x = _grad_checkpoint(body, x) if arch.remat else body(x)
+                return _layer_train(arch, seg, pl, xc, w, ekv)
+            x, aux = _grad_checkpoint(body, x) if arch.remat else body(x)
+            aux_total = aux_total + aux
         layer_idx += seg.n
     return blk._norm(arch, params["final_norm"], x), aux_total
 
@@ -338,9 +427,9 @@ def lm_loss(params, arch: ArchConfig, batch, dtype=torch.bfloat16):
     """batch: tokens (B, S), labels (B, S) integer tensors (-1 = ignore),
     plus ``frames`` / ``images`` for the frontend stubs (the image
     prefix takes label -1).  Activations in ``dtype``; the readout in
-    float32 (float64 when ``dtype`` is float64).  Returns a 0-d tensor.
-    MTP and the other block kinds raise ``NotImplementedError``."""
-    build_plan(arch)
+    float32 (float64 when ``dtype`` is float64).  Returns a 0-d tensor:
+    the cross-entropy, plus ``mtp_weight`` times the MTP head's loss
+    (``arch.mtp``), plus the MoE balance loss."""
     x, prefix = _embed_inputs(params, arch, batch, dtype)
     enc_out = None
     if arch.enc_dec:
@@ -352,7 +441,26 @@ def lm_loss(params, arch: ArchConfig, batch, dtype=torch.bfloat16):
     tie = arch.tie_embeddings or "lm_head" not in params
     table = params["embed"]["table"] if tie else params["lm_head"]
     loss = chunked_ce(h, table, labels, arch.loss_chunk, transpose=tie)
+    if arch.mtp:
+        loss = loss + arch.mtp_weight * _mtp_loss(
+            params, arch, h[:, prefix:], batch, dtype, table, tie)
     return loss + aux
+
+
+def _mtp_loss(params, arch: ArchConfig, h, batch, dtype, table, tie):
+    """DeepSeek-V3-style depth-1 multi-token prediction: one extra block
+    predicts label t+1 (token t+2) from (h_t, emb(token_{t+1}))."""
+    mtp = params["mtp"]
+    emb_next = embed(params["embed"], batch["tokens"][:, 1:]).to(dtype)
+    x = dense(mtp["proj"], torch.cat([h[:, :-1].to(dtype), emb_next],
+                                     dim=-1))
+    if arch.use_mla:
+        x, _ = blk.mla_block_train(mtp["block"], arch, x)
+    else:
+        x, _ = blk.attn_block_train(mtp["block"], arch, x)
+    x = blk._norm(arch, mtp["norm"], x)
+    return chunked_ce(x, table, batch["labels"][:, 1:], arch.loss_chunk,
+                      transpose=tie)
 
 
 # ---------------------------------------------------------------------------
@@ -390,11 +498,15 @@ def _readout(params, arch: ArchConfig, h):
 def lm_prefill(params, arch: ArchConfig, batch, cache_len: int,
                dtype=torch.bfloat16):
     """Prompt forward; returns (last-position logits (B, V) float32, cache).
-    The cache holds each segment's list of per-layer (k, v), each
-    (B, cache_len + prefix, Hkv, hd) with ``prefix`` the image tokens, a
-    cross segment's per-layer cross-attention (k, v) of the encoder
-    output under ``<segment>_cross``, and ``"pos"``, the prefix and
-    prompt length."""
+    The cache holds each segment's list of per-layer entries: an
+    attention layer's (k, v), each (B, cache_len + prefix, Hkv, hd) with
+    ``prefix`` the image tokens; an MLA layer's compressed latents
+    (B, cache_len, kv_lora + rope_dim); a Mamba layer's (ssm, conv_tail),
+    an mLSTM's (C, n, m, conv_tail), an sLSTM's (c, n, h, m).  Each
+    application of zamba2's shared block has its (k, v) under
+    ``shared<i>``, a cross segment its per-layer cross-attention (k, v)
+    of the encoder output under ``<segment>_cross``; ``"pos"`` is the
+    prefix and prompt length."""
     x, prefix = _embed_inputs(params, arch, batch, dtype)
     enc_out = None
     if arch.enc_dec:
@@ -403,14 +515,27 @@ def lm_prefill(params, arch: ArchConfig, batch, cache_len: int,
     layer_idx = 0
     total_len = cache_len + prefix
     for seg in build_plan(arch):
+        if seg.kind == "shared":
+            y, _, kv = blk.attn_block_prefill(params["shared_attn"], arch, x,
+                                              total_len)
+            x = _shared(params, arch, x, y)
+            cache[seg.name] = kv
+            continue
         wins = layer_windows(arch, layer_idx, seg.n)
         ekvs = _cross_kvs(params, arch, seg, enc_out)
-        kvs = []
+        entries = []
         for pl, w, ekv in zip(params["segments"][seg.name], wins, ekvs):
-            x, _, kv = blk.attn_block_prefill(pl, arch, x, total_len,
-                                              window=w, enc_kv=ekv)
-            kvs.append(kv)
-        cache[seg.name] = kvs
+            if seg.kind == "attn":
+                x, _, c = blk.attn_block_prefill(pl, arch, x, total_len,
+                                                 window=w, moe=seg.moe,
+                                                 enc_kv=ekv)
+            elif seg.kind == "mla":
+                x, _, c = blk.mla_block_prefill(pl, arch, x, total_len,
+                                                moe=seg.moe)
+            else:
+                x, _, c = _CELL_PREFILL[seg.kind](pl, arch, x)
+            entries.append(c)
+        cache[seg.name] = entries
         if seg.cross and enc_out is not None:
             cache[seg.name + "_cross"] = ekvs
         layer_idx += seg.n
@@ -421,22 +546,34 @@ def lm_prefill(params, arch: ArchConfig, batch, cache_len: int,
 
 def lm_decode(params, arch: ArchConfig, token, cache, dtype=torch.bfloat16):
     """One decode step. token: (B,) integers.  Returns (logits (B, V)
-    float32, cache); the cache's tensors are updated in place."""
+    float32, cache); attention and MLA caches are updated in place, the
+    recurrent states replaced."""
     pos = cache["pos"]
     x = _embed_tokens(params, arch, token[:, None], dtype)
     new_cache: dict[str, Any] = {"pos": pos + 1}
     layer_idx = 0
     for seg in build_plan(arch):
+        if seg.kind == "shared":
+            y, kv = blk.attn_block_decode(params["shared_attn"], arch, x,
+                                          cache[seg.name], pos)
+            x = _shared(params, arch, x, y)
+            new_cache[seg.name] = kv
+            continue
         wins = layer_windows(arch, layer_idx, seg.n)
         cross = seg.name + "_cross"
         ekvs = cache.get(cross, [None] * seg.n)
-        kvs = []
-        for pl, kv, w, ekv in zip(params["segments"][seg.name],
-                                  cache[seg.name], wins, ekvs):
-            x, kv = blk.attn_block_decode(pl, arch, x, kv, pos, window=w,
-                                          enc_kv=ekv)
-            kvs.append(kv)
-        new_cache[seg.name] = kvs
+        entries = []
+        for pl, c, w, ekv in zip(params["segments"][seg.name],
+                                 cache[seg.name], wins, ekvs):
+            if seg.kind == "attn":
+                x, c = blk.attn_block_decode(pl, arch, x, c, pos, window=w,
+                                             moe=seg.moe, enc_kv=ekv)
+            elif seg.kind == "mla":
+                x, c = blk.mla_block_decode(pl, arch, x, c, pos, moe=seg.moe)
+            else:
+                x, c = _CELL_DECODE[seg.kind](pl, arch, x, c, pos)
+            entries.append(c)
+        new_cache[seg.name] = entries
         if cross in cache:
             new_cache[cross] = ekvs
         layer_idx += seg.n

@@ -655,6 +655,46 @@ def test_zoo_prefill_routes_global_layers_through_the_kernel(cuda, name, kw,
     assert float((outs[0] - outs[1]).abs().max()) <= 2e-4
 
 
+@pytest.mark.parametrize("name,s,calls", [
+    ("xlstm-125m", 40, 0),
+    ("zamba2-1.2b", 160, 2),       # the shared block's two applications
+    ("deepseek-v2-236b", 40, 0),
+    ("deepseek-v3-671b", 40, 0)])
+def test_zoo2_reduced_serves_on_card_as_on_cpu(cuda, name, s, calls):
+    """reduced() of xLSTM, zamba2 and the two deepseek models (the
+    reference's weights from one key on both devices), served two waves
+    of 2 prompts and 4 tokens through ``serve_lm``, the flash route on:
+    the card's prefill logits within 2e-4 x max(1, max |logit|) of the
+    CPU's, greedy tokens equal but at near-ties, and one kernel launch
+    for each application of zamba2's shared block a prefill, none for
+    the others."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import init_model
+
+    arch = dataclasses.replace(reduced(get_arch(name)),
+                               use_flash_attention=True)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        flash.launches = 0
+        runs[dev.type] = serve_lm(
+            arch, batch=2, prompt_len=s, gen_len=4, waves=2, seed=1,
+            device=dev, params=init_model(arch, prng.PRNGKey(0), device=dev))
+        torch.cuda.synchronize()
+        launches = flash.launches
+    assert launches == 2 * calls
+    cpu, card = runs["cpu"], runs["cuda"]
+    for w in range(2):
+        want, got = cpu.logits[w], card.logits[w].cpu()
+        bar = 2e-4 * max(1.0, float(want[0].abs().max()))
+        assert float((got[0] - want[0]).abs().max()) <= bar
+        chip_smoke.tokens_match(card.tokens[w].cpu().numpy(),
+                                cpu.tokens[w].numpy(), want.numpy())
+
+
 # ---------------------------------------------------------------------------
 # the R-restart popstep launch, meshes and the batched engine on the card
 # ---------------------------------------------------------------------------

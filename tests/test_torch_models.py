@@ -76,8 +76,12 @@ def test_config_and_reduced_match_the_reference():
 @pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-1.2b",
                                   "deepseek-v3-671b"])
 def test_unported_architectures_are_not_registered(name):
-    with pytest.raises(KeyError, match="queue 1 #8"):
-        get_arch(name)
+    """The last three families the port took are registered with the
+    reference's fields; a name neither package has still raises."""
+    assert (dataclasses.asdict(get_arch(name))
+            == dataclasses.asdict(jax_get_arch(name)))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch(name + "-nope")
 
 
 def test_full_width_parameter_count():

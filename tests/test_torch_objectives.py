@@ -62,10 +62,8 @@ def test_registry_mirrors_reference():
     ref_names = tuple(n for n in jobj.names() if ":" not in n)
     assert tuple(n for n in tobj.names() if ":" not in n) == ref_names
     zoo = [n for n in tobj.names() if ":" in n]
-    assert zoo == [n for n in jobj.names() if n.split(":")[-1] in (
-        "whisper-medium", "phi-3-vision-4.2b", "codeqwen1.5-7b",
-        "gemma3-27b", "granite-34b", "qwen2-1.5b")]
-    assert len(zoo) == 6
+    assert zoo == [n for n in jobj.names() if ":" in n]
+    assert len(zoo) == 10            # a tuning problem for every arch
     for name in ref_names:
         assert tobj.accepts_n(name) == jobj.accepts_n(name)
     for name, kw in [("rastrigin", {}), ("rastrigin", {"n": 2}),

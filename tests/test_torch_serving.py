@@ -1041,9 +1041,12 @@ def test_serve_dgo_checks_its_flags(tmp_path):
         serve.serve_dgo(args("--problems", "rastrigin:0"), device="cpu")
     with pytest.raises(SystemExit, match="--rps must be > 0"):
         serve.serve_dgo(args("--rps", "0"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        serve.serve_dgo(args("--problems", "subspace-lm:xlstm-125m"),
-                        device="cpu")
+    # every architecture's tuning problem serves, xLSTM's included
+    rep = serve.serve_dgo(args("--problems", "subspace-lm:xlstm-125m",
+                               "--restarts", "1", "--waves", "1",
+                               "--max-iters", "2"), device="cpu")
+    assert rep["problems"] == ["subspace-lm:xlstm-125m"]
+    assert rep["completed"] == 1 and np.isfinite(rep["best_value"])
     # --ckpt-dir persists tuning winners only: none among paper problems
     rep = serve.serve_dgo(args("--ckpt-dir", str(tmp_path), "--problem",
                                "rastrigin", "--n-vars", "2", "--restarts",

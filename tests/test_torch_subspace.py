@@ -160,10 +160,14 @@ def test_materialize_winner_dense_parity():
 def test_registry_has_the_ports_zoo():
     assert NAME in tobj.names() and NAME in jobj.names()
     assert tobj.canonical_spec(NAME, d=8) == jobj.canonical_spec(NAME, d=8)
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        tobj.get("subspace-lm:xlstm-125m")
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        Problem.get("subspace-lm:zamba2-1.2b", d=4)
+    # every architecture of the reference is a tuning problem; an
+    # unknown one raises the reference's ValueError
+    assert tobj.get("subspace-lm:xlstm-125m").signature == jobj.get(
+        "subspace-lm:xlstm-125m").signature
+    assert Problem.get("subspace-lm:zamba2-1.2b", d=4).signature \
+        == jobj.get("subspace-lm:zamba2-1.2b", d=4).signature
+    with pytest.raises(ValueError, match="unknown objective"):
+        tobj.get("subspace-lm:mamba-7b")
 
 
 def test_tuning_problems_bucket_by_semantic_signature(tiny_problem,

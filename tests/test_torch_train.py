@@ -223,10 +223,23 @@ def test_lm_loss_float64():
 
 
 def test_lm_loss_other_blocks_raise():
-    _, ta = _archs(mtp=True)
-    _, tb = _batch(0, 1, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        tlm.lm_loss({}, ta, tb)
+    """An MTP head on attention blocks (reduced qwen2 with ``mtp=True``):
+    its weighted loss is in the objective, as the reference's."""
+    ja, ta = _archs(mtp=True)
+    jb, tb = _batch(0, 2, 12)
+    rng = np.random.default_rng(1)
+    jp = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape)
+                   ).astype(np.float32),
+        jax_init_model(ja, jax.random.PRNGKey(0)))
+    tp = tlm.load_reference_params(jp, device="cpu")
+    want = float(jlm.lm_loss(jax.tree.map(jnp.asarray, jp), ja, jb,
+                             dtype=jnp.float32))
+    got = tlm.lm_loss(tp, ta, tb, dtype=torch.float32)
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+    base = tlm.lm_loss(tp, dataclasses.replace(ta, mtp=False), tb,
+                       dtype=torch.float32)
+    assert float(got) > float(base) + 0.1 * ta.mtp_weight
 
 
 # ---------------------------------------------------------------------------

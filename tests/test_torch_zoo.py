@@ -35,8 +35,8 @@ from repro_torch.models import lm as tlm
 
 NEW = ("codeqwen1.5-7b", "gemma3-27b", "granite-34b", "whisper-medium",
        "phi-3-vision-4.2b")
-UNPORTED = ("xlstm-125m", "zamba2-1.2b", "deepseek-v3-671b",
-            "deepseek-v2-236b")
+LATER = ("xlstm-125m", "zamba2-1.2b", "deepseek-v3-671b",
+         "deepseek-v2-236b")         # tests/test_torch_{xlstm,mamba2,deepseek}.py
 TOL = 1e-5            # layers: float32 in another order
 LM_TOL = 2e-4         # whole models: tests/test_models.py:127
 NORMAL_ULP = 4        # tests/test_torch_prng.py
@@ -56,10 +56,15 @@ def _archs(name, flash_on=False, **kw):
 
 
 def _fan_in(key, spec):
-    """A matrix's fan-in in one layer: its first axis (``wo``'s first
-    two, heads x head_dim)."""
-    return int(np.prod(spec.shape[:2])) if key.endswith("['wo']") \
-        else spec.shape[0]
+    """A matrix's fan-in in one layer: its first axis (an attention
+    output's first two, heads x head_dim; an expert's second, after the
+    expert axis)."""
+    if key.endswith(("['wo']", "['w_o']")):
+        return int(np.prod(spec.shape[:2]))
+    if len(spec.shape) == 3 and key.endswith(("['gate']", "['up']",
+                                               "['down']")):
+        return spec.shape[1]
+    return spec.shape[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,19 +137,28 @@ def test_config_and_parameter_count_match_the_reference(name):
 
 
 def test_the_port_registers_six_architectures():
-    assert ARCH_NAMES == ["whisper-medium", "phi-3-vision-4.2b",
-                          "codeqwen1.5-7b", "gemma3-27b", "granite-34b",
-                          "qwen2-1.5b"]
+    """All ten of the reference's architectures, in its order."""
+    from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+
+    assert ARCH_NAMES == JAX_ARCH_NAMES == [
+        "xlstm-125m", "whisper-medium", "phi-3-vision-4.2b",
+        "codeqwen1.5-7b", "gemma3-27b", "granite-34b", "qwen2-1.5b",
+        "deepseek-v3-671b", "deepseek-v2-236b", "zamba2-1.2b"]
     assert tlm.n_params(get_arch("phi-3-vision-4.2b")) == 3_824_225_280
     assert tlm.n_params(get_arch("whisper-medium")) == 759_784_448
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", LATER)
 def test_unported_architectures_still_raise(name):
-    with pytest.raises(KeyError, match="queue 1 #8"):
-        get_arch(name)
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        tlm.build_plan(jax_get_arch(name))
+    """The four architectures ported last plan the reference's segments
+    (kind, layers, MoE, dense d_ff, name) at full width and reduced; an
+    unknown name still raises."""
+    for t, j in ((get_arch(name), jax_get_arch(name)),
+                 (reduced(get_arch(name)), jax_reduced(jax_get_arch(name)))):
+        assert ([dataclasses.asdict(s) for s in tlm.build_plan(t)]
+                == [dataclasses.asdict(s) for s in jlm.build_plan(j)])
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch(name.upper())
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
@@ -393,8 +407,14 @@ def test_flash_route_matches_the_reference(name, kw, s, calls):
 
 
 def test_other_block_kinds_still_raise():
-    for kw in ({"mtp": True}, {"moe_experts": 4}, {"use_mla": True},
-               {"block_pattern": "mamba"}):
-        with pytest.raises(NotImplementedError, match="queue 1 #8"):
-            tlm.model_spec(dataclasses.replace(reduced(get_arch(
-                "codeqwen1.5-7b")), **kw))
+    """The other block kinds grafted onto reduced codeqwen (an MTP head
+    on attention blocks, MoE FFNs, MLA, a pure Mamba stack) build the
+    reference's plan and parameter count."""
+    for kw in ({"mtp": True}, {"moe_experts": 4, "moe_top_k": 2},
+               {"use_mla": True}, {"block_pattern": "mamba"}):
+        t = dataclasses.replace(reduced(get_arch("codeqwen1.5-7b")), **kw)
+        j = dataclasses.replace(jax_reduced(jax_get_arch("codeqwen1.5-7b")),
+                                **kw)
+        assert ([dataclasses.asdict(s) for s in tlm.build_plan(t)]
+                == [dataclasses.asdict(s) for s in jlm.build_plan(j)])
+        assert tlm.n_params(t) == jlm.n_params(j), kw
