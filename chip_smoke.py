@@ -205,8 +205,11 @@ Phases (any failure exits non-zero; none is caught):
              weights allocated, B = 1, prompt 512), f32: (a)
              ``serve_lm`` with the flash route on, 8 tokens, 2 waves, the
              count 0 around it (``ZOO2_LAUNCHES`` a prefill: zamba2's
-             shared block, none for the others), the MoE pairs dropped
-             a wave; (b) the same weights through the chunked plain
+             shared block, none for the others); an MoE model's routing
+             in one more wave, untimed: each layer's expert loads and
+             drops equal to ``torch.topk`` + ``torch.bincount`` of its
+             router's softmax, the loads, the pairs dropped a wave and
+             the tokens' mean cosine printed; (b) the same weights through the chunked plain
              attention (for the three models with no kernel on their
              path the same computation again: it is deterministic),
              logits and tokens as in phase 10; (c) zamba2's first q/k/v
@@ -3300,29 +3303,109 @@ def time_zoo_shape(q, k, v, kw, dev) -> dict:
     return out
 
 
-def _count_moe_drops(moe):
-    """Wrap ``moe._route_group`` to keep, a call, its token count and its
-    dropped pairs (a device tensor: no synchronisation); returns (the
-    list, a function that puts the real one back)."""
+def _watch_moe_routing(moe):
+    """Wrap ``moe._route_group`` to keep, a call, what it routed beside
+    an independent count of the same routing (``torch.topk`` of the
+    router's softmax, ``torch.bincount``, the capacity applied to the
+    counts): tokens, capacity, each expert's load both ways, the pairs
+    dropped both ways, the tokens whose k-th and (k+1)-th probabilities
+    tie, and the tokens' mean pairwise cosine (device tensors: no
+    synchronisation).  Returns (the list, a function that puts the real
+    one back)."""
+    import torch
+
     real = moe._route_group
     seen: list = []
 
-    def counted(p, cfg, xt, capacity):
+    def watched(p, cfg, xt, capacity):
         out = real(p, cfg, xt, capacity)
-        seen.append((xt.shape[0], (~out[1][4]).sum()))
+        e_sort, keep = out[1][0], out[1][4]
+        ct = torch.promote_types(xt.dtype, torch.float32)
+        probs = torch.softmax(xt.to(ct) @ p["router"].to(ct), dim=-1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1)
+        own = torch.bincount(top.indices[:, :-1].reshape(-1),
+                             minlength=cfg.n_experts)
+        unit = torch.nn.functional.normalize(xt.to(ct), dim=-1)
+        t = xt.shape[0]
+        cos = (unit.sum(0).square().sum() - t) / max(t * (t - 1), 1)
+        seen.append(dict(
+            tokens=t, capacity=capacity,
+            load=torch.bincount(e_sort, minlength=cfg.n_experts),
+            dropped=(~keep).sum(), own_load=own,
+            own_dropped=(own - capacity).clamp_min(0).sum(),
+            ties=(top.values[:, -2] == top.values[:, -1]).sum(), cos=cos))
         return out
 
-    moe._route_group = counted
+    moe._route_group = watched
 
     def restore():
         moe._route_group = real
     return seen, restore
 
 
+def moe_routing(arch, params, kw, prompt_len, dev) -> dict:
+    """One wave of ``serve_lm`` again, untimed, with every routing of its
+    MoE layers watched (:func:`_watch_moe_routing`): each must equal the
+    independent count (loads and drops; a tie at the k-th choice lets
+    them differ by two pairs a tie).  Prints, per MoE layer of the
+    prefill, the experts used, the largest load beside the capacity, the
+    experts over it, the pairs dropped and the tokens' mean cosine, and
+    the pairs dropped a wave.  Returns those, {"prefill": [dropped,
+    routed], "decode": [...]}."""
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import moe
+
+    seen, restore = _watch_moe_routing(moe)
+    try:
+        serve_lm(arch, params=params, device=dev,
+                 **{**kw, "waves": 1, "prompt_len": prompt_len})
+    finally:
+        restore()
+    k, name = arch.moe_top_k, arch.name
+    rows = [{x: (v if isinstance(v, int) else v.cpu()) for x, v in r.items()}
+            for r in seen]
+    for r in rows:
+        slack = 2 * int(r["ties"])
+        diff = int((r["load"] - r["own_load"]).abs().sum())
+        check(diff <= slack
+              and abs(int(r["dropped"]) - int(r["own_dropped"])) <= slack,
+              f"zoo {name}: routing of {r['tokens']} tokens differs from "
+              f"topk + bincount by {diff} pairs, drops {int(r['dropped'])} "
+              f"vs {int(r['own_dropped'])} ({int(r['ties'])} ties)")
+    t_prefill = kw["batch"] * (prompt_len + arch.vision_tokens)
+    pre = [r for r in rows if r["tokens"] == t_prefill]
+    dec = [r for r in rows if r["tokens"] == kw["batch"]]
+    check(len(pre) + len(dec) == len(rows) and pre and dec,
+          f"zoo {name}: {len(rows)} routings, {len(pre)} prefill and "
+          f"{len(dec)} decode")
+    for i, r in enumerate(pre):
+        load = r["load"]
+        print(f"[zoo] {name} prefill MoE layer {i}: {t_prefill} tokens x "
+              f"top-{k}, {int((load > 0).sum())} of {arch.moe_experts} "
+              f"experts used, largest load {int(load.max())} vs capacity "
+              f"{r['capacity']}, {int((load > r['capacity']).sum())} "
+              f"experts over it, {int(r['dropped'])} of {t_prefill * k} "
+              f"pairs dropped (topk + bincount: {int(r['own_dropped'])}, "
+              f"{int(r['ties'])} ties); tokens' mean cosine "
+              f"{float(r['cos']):.4f}")
+    dropped = {phase: [sum(int(r["dropped"]) for r in rs),
+                       sum(r["tokens"] for r in rs) * k]
+               for phase, rs in (("prefill", pre), ("decode", dec))}
+    print(f"[zoo] {name} MoE pairs dropped a wave (an untimed wave; of the "
+          f"pairs routed over its {arch.n_layers - arch.moe_dense_layers} "
+          f"MoE layers, each equal to topk + bincount): prefill "
+          f"{dropped['prefill'][0]} of {dropped['prefill'][1]}, decode "
+          f"{dropped['decode'][0]} of {dropped['decode'][1]} (capacity "
+          f"factor {arch.moe_capacity}; decode capacity "
+          f"{dec[0]['capacity']})")
+    return dropped
+
+
 def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
     """10a-c and 11a-c for one model: ``serve_lm`` through the kernel, its
-    count set to 0 just before and read just after (an MoE model's
-    dropped pairs counted); the same weights, prompts and stub inputs
+    count set to 0 just before and read just after; an MoE model's
+    routing watched in one more wave, untimed (:func:`moe_routing`); the
+    same weights, prompts and stub inputs
     through the chunked plain attention (prefill logits within 1e-3 x
     max |logit|, tokens equal but at near-ties); one prefill under the
     profiler; the kernel at each shape the model gave it (the first call
@@ -3333,7 +3416,7 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.serve import serve_lm
-    from repro_torch.models import init_model, lm_prefill, moe, n_params
+    from repro_torch.models import init_model, lm_prefill, n_params
 
     arch = zoo_arch(name, depth)
     per_prefill = {**ZOO_LAUNCHES, **ZOO2_LAUNCHES}[name]
@@ -3354,14 +3437,12 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
         return real(q, k, v, **kwargs)
 
     ops.flash_sdpa = capture
-    drops, restore = _count_moe_drops(moe)
     ops.launches = 0
     try:
         res = serve_lm(arch, params=params, **kw)   # device None: the card
         n_launch = ops.launches
     finally:
         ops.flash_sdpa = real
-        restore()
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = per_prefill * kw["waves"]
     cut = f", first {depth} of its layers" if depth else ""
@@ -3377,20 +3458,8 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
           f"tokens in {res.decode_s:.4f} s); peak memory {peak:.2f} GiB")
     check(n_launch == want, f"zoo {name}: {n_launch} flash launches, want "
                             f"{want}")
-    dropped = None
-    if arch.moe_experts:
-        t_prefill = batch * (prompt_len + arch.vision_tokens)
-        dropped = {
-            phase: [int(sum(int(d) for t, d in drops if t == n))
-                    // kw["waves"], n * arch.moe_top_k * sum(
-                        t == n for t, _ in drops) // kw["waves"]]
-            for phase, n in (("prefill", t_prefill), ("decode", batch))}
-        print(f"[zoo] {name} MoE pairs dropped a wave (of the pairs routed, "
-              f"over its {arch.n_layers - arch.moe_dense_layers} MoE "
-              f"layers): prefill {dropped['prefill'][0]} of "
-              f"{dropped['prefill'][1]}, decode {dropped['decode'][0]} of "
-              f"{dropped['decode'][1]} (capacity factor "
-              f"{arch.moe_capacity})")
+    dropped = (moe_routing(arch, params, kw, prompt_len, dev)
+               if arch.moe_experts else None)
     for toks, logits in zip(res.tokens, res.logits):
         check(tuple(toks.shape) == (batch, kw["gen_len"])
               and bool(logits.isfinite().all()),
@@ -3446,29 +3515,32 @@ def serve_zoo_model(name, depth, batch, prompt_len, dev) -> dict:
             "shapes": shapes, "dropped": dropped, **stats}
 
 
-def phase_zoo(dev) -> dict:
-    """Phase 10: the zoo beyond qwen2 on the card. (a-c) each model of
-    ``ZOO`` served at full width (gemma3 and granite cut in depth), one
-    at a time, by :func:`serve_zoo_model`; (d) ``run_training`` of
-    ``reduced()`` whisper-medium and phi-3-vision for 2 steps, losses
-    finite; (e) ``solve(subspace-lm:whisper-medium, Fused(),
-    max_iters=4)`` on the card: best_f finite, no popstep launch."""
+def phase_zoo(dev, label, models, train, subspace) -> dict:
+    """Phases 10 and 11, the zoo beyond qwen2 on the card: (a-c) each of
+    ``models`` served at full width (some cut in depth), one at a time,
+    each freed before the next, by :func:`serve_zoo_model`; (d)
+    ``run_training`` of ``reduced()`` of each of ``train`` for 2 steps
+    (:func:`train_zoo_model`); (e) ``solve(subspace, Fused(),
+    max_iters=4)`` on the card (:func:`solve_zoo_subspace`).  Returns
+    each served model's measurements by name."""
     import gc
 
     import torch
 
     t_phase = time.perf_counter()
     CLOCK_NOTES.setdefault("flash_attention", []).append(
-        "phase 10's plain_ms and library_ms by CUDA events")
+        f"phase {label}'s plain_ms and library_ms by CUDA events")
     by_model = {}
-    for name, depth, batch, prompt_len in ZOO:
-        by_model[name] = serve_zoo_model(name, depth, batch, prompt_len, dev)
+    for name, depth, batch, prompt_len in models:
         gc.collect()
         torch.cuda.empty_cache()
-    for name in ZOO_TRAIN:
+        by_model[name] = serve_zoo_model(name, depth, batch, prompt_len, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in train:
         train_zoo_model(name, dev)
-    solve_zoo_subspace(ZOO_SUBSPACE, dev)
-    print(f"[zoo] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    solve_zoo_subspace(subspace, dev)
+    print(f"[zoo] phase {label}: {time.perf_counter() - t_phase:.1f} s")
     return by_model
 
 
@@ -3490,8 +3562,6 @@ ZOO2 = (("xlstm-125m", None, 4, 1024),
 # 192, v 128), as in the reference
 ZOO2_LAUNCHES = {"xlstm-125m": 0, "zamba2-1.2b": 7, "deepseek-v2-236b": 0,
                  "deepseek-v3-671b": 0}
-ZOO2_TRAIN = ("xlstm-125m", "zamba2-1.2b", "deepseek-v2-236b",
-              "deepseek-v3-671b")
 ZOO2_SUBSPACE = "subspace-lm:xlstm-125m"
 
 
@@ -3560,32 +3630,6 @@ def solve_zoo_subspace(spec, dev) -> None:
           f"launches {popstep.launches} + {popstep.fold_launches}")
 
 
-def phase_zoo2(dev) -> dict:
-    """Phase 11: xLSTM, zamba2 and the two deepseek models on the card.
-    (a-c) each model of ``ZOO2`` served at full width (the deepseek
-    models cut in depth), one at a time, by :func:`serve_zoo_model`;
-    (d) ``run_training`` of ``reduced()`` of each for 2 steps
-    (:func:`train_zoo_model`); (e) ``solve(subspace-lm:xlstm-125m,
-    Fused(), max_iters=4)`` on the card."""
-    import gc
-
-    import torch
-
-    t_phase = time.perf_counter()
-    by_model = {}
-    for name, depth, batch, prompt_len in ZOO2:
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_model[name] = serve_zoo_model(name, depth, batch, prompt_len, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for name in ZOO2_TRAIN:
-        train_zoo_model(name, dev)
-    solve_zoo_subspace(ZOO2_SUBSPACE, dev)
-    print(f"[zoo] phase 11: {time.perf_counter() - t_phase:.1f} s")
-    return by_model
-
-
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3628,8 +3672,9 @@ def main() -> None:
     phase_subspace(dev)
     phase_meta(dev)
     timing_for("flash_attention")
-    zoo = phase_zoo(dev)
-    zoo2 = phase_zoo2(dev)
+    zoo = phase_zoo(dev, 10, ZOO, ZOO_TRAIN, ZOO_SUBSPACE)
+    zoo2 = phase_zoo(dev, 11, ZOO2, [name for name, *_ in ZOO2],
+                     ZOO2_SUBSPACE)
     n_launch = sum(n for n, _ in by_path.values())
     n_fold = sum(f for _, f in by_path.values())
     zoo_launches = sum(m["launches"] for m in zoo.values())

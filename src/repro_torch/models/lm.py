@@ -336,15 +336,13 @@ def _cross_kvs(params, arch: ArchConfig, seg: Segment, enc_out):
     return [cross_kv(pl["xattn"], cfg, enc_out) for pl in layers]
 
 
-_CELL_TRAIN = {"mamba": blk.mamba_block_train,
-               "mlstm": blk.mlstm_block_train,
-               "slstm": blk.slstm_block_train}
-_CELL_PREFILL = {"mamba": blk.mamba_block_prefill,
-                 "mlstm": blk.mlstm_block_prefill,
-                 "slstm": blk.slstm_block_prefill}
-_CELL_DECODE = {"mamba": blk.mamba_block_decode,
-                "mlstm": blk.mlstm_block_decode,
-                "slstm": blk.slstm_block_decode}
+# a recurrent cell kind's (train, prefill, decode) block functions
+_CELLS = {"mamba": (blk.mamba_block_train, blk.mamba_block_prefill,
+                    blk.mamba_block_decode),
+          "mlstm": (blk.mlstm_block_train, blk.mlstm_block_prefill,
+                    blk.mlstm_block_decode),
+          "slstm": (blk.slstm_block_train, blk.slstm_block_prefill,
+                    blk.slstm_block_decode)}
 
 
 def _layer_train(arch: ArchConfig, seg: Segment, pl, x, window, enc_kv):
@@ -354,7 +352,29 @@ def _layer_train(arch: ArchConfig, seg: Segment, pl, x, window, enc_kv):
                                     enc_kv=enc_kv)
     if seg.kind == "mla":
         return blk.mla_block_train(pl, arch, x, moe=seg.moe)
-    return _CELL_TRAIN[seg.kind](pl, arch, x)
+    return _CELLS[seg.kind][0](pl, arch, x)
+
+
+def _layer_prefill(arch: ArchConfig, seg: Segment, pl, x, cache_len,
+                   window, enc_kv):
+    """One layer of a segment on the prefill: (x, aux, cache entry)."""
+    if seg.kind == "attn":
+        return blk.attn_block_prefill(pl, arch, x, cache_len, window=window,
+                                      moe=seg.moe, enc_kv=enc_kv)
+    if seg.kind == "mla":
+        return blk.mla_block_prefill(pl, arch, x, cache_len, moe=seg.moe)
+    return _CELLS[seg.kind][1](pl, arch, x)
+
+
+def _layer_decode(arch: ArchConfig, seg: Segment, pl, x, entry, pos,
+                  window, enc_kv):
+    """One layer of a segment on a decode step: (x, cache entry)."""
+    if seg.kind == "attn":
+        return blk.attn_block_decode(pl, arch, x, entry, pos, window=window,
+                                     moe=seg.moe, enc_kv=enc_kv)
+    if seg.kind == "mla":
+        return blk.mla_block_decode(pl, arch, x, entry, pos, moe=seg.moe)
+    return _CELLS[seg.kind][2](pl, arch, x, entry, pos)
 
 
 def _shared(params, arch: ArchConfig, x, y):
@@ -525,15 +545,7 @@ def lm_prefill(params, arch: ArchConfig, batch, cache_len: int,
         ekvs = _cross_kvs(params, arch, seg, enc_out)
         entries = []
         for pl, w, ekv in zip(params["segments"][seg.name], wins, ekvs):
-            if seg.kind == "attn":
-                x, _, c = blk.attn_block_prefill(pl, arch, x, total_len,
-                                                 window=w, moe=seg.moe,
-                                                 enc_kv=ekv)
-            elif seg.kind == "mla":
-                x, _, c = blk.mla_block_prefill(pl, arch, x, total_len,
-                                                moe=seg.moe)
-            else:
-                x, _, c = _CELL_PREFILL[seg.kind](pl, arch, x)
+            x, _, c = _layer_prefill(arch, seg, pl, x, total_len, w, ekv)
             entries.append(c)
         cache[seg.name] = entries
         if seg.cross and enc_out is not None:
@@ -565,13 +577,7 @@ def lm_decode(params, arch: ArchConfig, token, cache, dtype=torch.bfloat16):
         entries = []
         for pl, c, w, ekv in zip(params["segments"][seg.name],
                                  cache[seg.name], wins, ekvs):
-            if seg.kind == "attn":
-                x, c = blk.attn_block_decode(pl, arch, x, c, pos, window=w,
-                                             moe=seg.moe, enc_kv=ekv)
-            elif seg.kind == "mla":
-                x, c = blk.mla_block_decode(pl, arch, x, c, pos, moe=seg.moe)
-            else:
-                x, c = _CELL_DECODE[seg.kind](pl, arch, x, c, pos)
+            x, c = _layer_decode(arch, seg, pl, x, c, pos, w, ekv)
             entries.append(c)
         new_cache[seg.name] = entries
         if cross in cache:

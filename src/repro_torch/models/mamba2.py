@@ -18,6 +18,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import resolve_device
 from repro_torch.models.layers import ParamSpec, rmsnorm
 
 
@@ -171,6 +172,9 @@ def xbc_tail(cfg: Mamba2Config, x, p):
 
 def mamba2_init_state(cfg: Mamba2Config, batch: int, dtype=torch.float32,
                       device=None):
+    """The zero decode state (ssm, conv_tail); ``device=None`` is the
+    card, as everywhere in the port."""
+    device = resolve_device(device)
     return (torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
                         dtype=torch.promote_types(dtype, torch.float32),
                         device=device),

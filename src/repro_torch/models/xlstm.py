@@ -27,6 +27,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import resolve_device
 from repro_torch.models.layers import ParamSpec, rmsnorm
 
 NEG_INF = -1e30
@@ -214,6 +215,9 @@ def mlstm_forward(p, cfg: MLSTMConfig, x, return_state: bool = False):
 
 def mlstm_init_state(cfg: MLSTMConfig, batch: int, dtype=torch.float32,
                      device=None):
+    """The empty decode state (C, n, m, conv_tail), m at its sentinel;
+    ``device=None`` is the card."""
+    device = resolve_device(device)
     h, hd = cfg.n_heads, cfg.head_dim
     ct = torch.promote_types(dtype, torch.float32)
     return (torch.zeros((batch, h, hd, hd), dtype=ct, device=device),
@@ -330,8 +334,9 @@ def slstm_step(p, cfg: SLSTMConfig, xi, xf, xz, xo, state):
 
 def slstm_init_state(cfg: SLSTMConfig, batch: int, dtype=torch.float32,
                      device=None):
+    """The zero state (c, n, h, m); ``device=None`` is the card."""
     z = torch.zeros((batch, cfg.n_heads, cfg.head_dim), dtype=dtype,
-                    device=device)
+                    device=resolve_device(device))
     return (z, z, z, z)
 
 

@@ -174,7 +174,7 @@ def test_mamba2_forward_and_decode_match_the_reference(seq):
         close_trees(tst, jst)
     jy, jst = decode(jp, jd[:, :1], jm2.mamba2_init_state(jcfg, 2))
     ty, tst = tm2.mamba2_decode(tp, tcfg, td[:, :1],
-                                tm2.mamba2_init_state(tcfg, 2))
+                                tm2.mamba2_init_state(tcfg, 2, device="cpu"))
     _close(ty, jy, TOL)
     close_trees(tst, jst)
 

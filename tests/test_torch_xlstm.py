@@ -19,6 +19,7 @@ import torch
 from repro.models import lm as jlm
 from repro.models import xlstm as jxl
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.models import mamba2 as tm2
 from repro_torch.models import lm as tlm
 from repro_torch.models import xlstm as txl
 from test_torch_mamba2 import (
@@ -58,7 +59,7 @@ def test_mlstm_forward_and_decode_match_the_reference(seq):
         close_trees(tst, jst)
     jy, jst = decode(jp, jd[:, :1], jxl.mlstm_init_state(jcfg, 2))
     ty, tst = txl.mlstm_decode(tp, tcfg, td[:, :1],
-                               txl.mlstm_init_state(tcfg, 2))
+                               txl.mlstm_init_state(tcfg, 2, device="cpu"))
     _close(ty, jy, TOL)
     close_trees(tst, jst)
 
@@ -84,9 +85,27 @@ def test_slstm_forward_and_decode_match_the_reference(seq):
         close_trees(tst, jst)
     jy, jst = decode(jp, jd[:, :1], jxl.slstm_init_state(jcfg, 2))
     ty, tst = txl.slstm_decode(tp, tcfg, td[:, :1],
-                               txl.slstm_init_state(tcfg, 2))
+                               txl.slstm_init_state(tcfg, 2, device="cpu"))
     _close(ty, jy, TOL)
     close_trees(tst, jst)
+
+
+@pytest.mark.parametrize("make", ["mamba2", "mlstm", "slstm"])
+def test_decode_states_default_to_the_card(make):
+    """``device=None`` is the card, as for every entry point of the port:
+    it raises without one; ``device="cpu"`` gives CPU tensors."""
+    cfg, init = {
+        "mamba2": (tm2.Mamba2Config(d_model=32, d_state=8, head_dim=16),
+                   tm2.mamba2_init_state),
+        "mlstm": (txl.MLSTMConfig(**MCFG), txl.mlstm_init_state),
+        "slstm": (txl.SLSTMConfig(**SCFG), txl.slstm_init_state),
+    }[make]
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in init(cfg, 2))
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init(cfg, 2)
+    assert all(t.device.type == "cpu" for t in init(cfg, 2, device="cpu"))
 
 
 @pytest.mark.parametrize("case", ["chunk", "first"])
