@@ -218,17 +218,48 @@ Phases (any failure exits non-zero; none is caught):
              each, 2 steps, finite losses, deepseek-v3's MTP term in
              each; (e) ``solve(subspace-lm:xlstm-125m, Fused(),
              max_iters=4)`` on the card: best_f finite, no popstep
-             launch.
+             launch;
+12. launch — the launch layer on ``torch.distributed``: (a) the fleet:
+             ``python -m repro_torch.launch.launcher --processes 2
+             --devices 4`` solving remote_sensing at full width with
+             ``Distributed()``, 64 iterations, each worker's popstep on
+             the one card and the (value, id) pairs over gloo: both
+             workers' best_f and history ``==`` one process of 8 shards;
+             launches a worker (``by_path`` ``fleet``) and the wall a step
+             against the single process; (b) ``build_cell`` on a (1, 1)
+             NCCL mesh, qwen2-1.5b at full width in bf16 through the
+             steps: train_4k at global batch 8 (two microbatches of 4;
+             the loss ``lm_loss``'s within 1e-6, the parameters move),
+             prefill_32k at batch 1 through the bf16 flash kernel (28
+             launches, ``flash_attention_bf16``'s ``by_path`` ``steps``;
+             logits within 2e-2 x max(1, |x|) of the step without it),
+             decode_32k at batch 8 against a 32,768-token cache (the
+             plain route's greedy token); each cell's wall, peak memory
+             and argument bytes against the dry run's arithmetic for the
+             cell; (c) ``make_dgo_train_step`` on one rank: xlstm-125m at
+             full width and depth in bf16, d_sub 64 at 4 bits (511
+             children), B 8, S 512, two steps: ``improved`` iff
+             ``new_val < parent_val``, ``new_val`` the step's own
+             evaluation of the winner alone within ``DGO_OWN_BAR``, the
+             decision against float32, the last winner's ``lm_loss`` at
+             ``materialize_winner`` within ``DGO_BF16_BAR``, seconds a
+             step and children a second; (d) the meta-device dry run of
+             qwen2-1.5b and deepseek-v3-671b train_4k and the
+             subspace-DGO cell on pod16x16 (256 fake ranks), started
+             first in a process of its own at a lower priority: argument
+             bytes a device, policy, collectives by kind; the DGO cell's
+             only its (value, id) all-gathers.
 
 The last lines are the card's name and power limit, a JSON line with
 every kernel's measurements (``popstep`` — its launches summed over
-phases 4, 4b and 8, each path's count under ``by_path`` —, ``popstep_fold``
+phases 4, 4b, 8 and 12a, each path's count under ``by_path`` —, ``popstep_fold``
 — merged into
 ``popstep``'s launch, timed through the check entry —, ``graycode``,
 ``fixedpoint``, ``popmin``, ``popmin_fold`` — merged into ``popmin``'s
 launch, timed through the check entry —, ``flash_attention`` — f32, its
 launches summed over phases 7, 10 and 11 (``by_path``), the shapes of
-phases 10 and 11 under ``by_model`` — and ``flash_attention_bf16``; each entry's
+phases 10 and 11 under ``by_model`` — and ``flash_attention_bf16`` —
+phase 7's prefill and phase 12b's, under ``by_path``; each entry's
 ``clock`` is ``"profiler"`` when every one of its times is the
 profiler's device time over whole records, else it names each time that
 is not), and
@@ -239,7 +270,10 @@ result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3016,10 +3050,10 @@ def phase_train(dev) -> dict:
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                           total_steps=args.steps, weight_decay=0.01)
     after = []
+    one_step = train.make_step(arch, opt_cfg, torch.float32)
     for name in ("memory", "restored"):
         src = state if name == "memory" else back
-        p1, _, loss = train.train_step(*src, batches[1], arch,
-                                       torch.float32, opt_cfg)
+        p1, _, loss = one_step(*src, batches[1])
         if name == "memory":
             del state, src
         else:
@@ -3630,6 +3664,477 @@ def solve_zoo_subspace(spec, dev) -> None:
           f"launches {popstep.launches} + {popstep.fold_launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the launch layer — a fleet, build_cell's steps, subspace DGO's
+# production step, the dry run
+# ---------------------------------------------------------------------------
+
+FLEET_PROBLEM = "remote_sensing"        # full width: 680 vars, 5,439 children
+FLEET_ITERS = 64
+FLEET_SHAPE = (2, 4)                    # --processes 2 x --devices 4
+FLEET_DEVICE = None                     # the card (a rehearsal: "cpu")
+# each worker: warm-up (binds the kernel step), then the counted solve;
+# one JSON line written in one write(2), so the workers' lines do not mix
+FLEET_PAYLOAD = """
+import json, os, time
+from repro_torch.launch.launcher import maybe_initialize_from_env
+maybe_initialize_from_env()
+import torch
+from repro_torch.core.distributed import fleet
+from repro_torch.core.solver import Distributed, resolve_mesh, solve
+from repro_torch.kernels.popstep import ops
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+solve(PROBLEM, Distributed(), seed=0, max_iters=2, device=DEVICE)
+sync()
+ops.launches = ops.fold_launches = 0
+t0 = time.perf_counter()
+r = solve(PROBLEM, Distributed(), seed=0, max_iters=ITERS, device=DEVICE)
+sync()
+wall = time.perf_counter() - t0
+fl = fleet()
+os.write(1, (json.dumps({
+    "rank": fl[0] if fl else 0, "world": fl[1] if fl else 1,
+    "shards": list(resolve_mesh().sizes), "best_f": float(r.best_f),
+    "history": [float(v) for v in r.extras["history"]],
+    "iterations": int(r.iterations), "launches": ops.launches,
+    "fold_launches": ops.fold_launches, "wall": wall}) + "\\n").encode())
+"""
+STEPS_ARCH = "qwen2-1.5b"
+# (shape, the cut global batch): train_4k 256 -> 8 (microbatches of 4, so
+# the accumulation runs two), prefill_32k 32 -> 1, decode_32k 128 -> 8
+STEPS_SHAPES = (("train_4k", 8), ("prefill_32k", 1), ("decode_32k", 8))
+STEPS_PROMPT = 128          # the decode cell's prompt before its token
+# the reference's DGO cell at full width and depth (12 layers, 3 of them
+# sLSTM): the (64, P) directions take 37 GB; the cross-entropy's vocab
+# chunk is 128 tokens (of 512) so a chunk of children's logits fits beside
+# them, and each chunk is bound by the sLSTM's ~25 launches a token
+DGO_CELL = dict(arch="xlstm-125m", d_sub=64, bits=4, batch=8, seq=512,
+                steps=2, alpha=2.0, loss_chunk=128)
+DGO_CHUNK_BYTES = 16 << 30  # float32 parameters of the children at once
+DGO_OWN_BAR = 0.0           # new_val vs the step's own evaluation of the
+#                             winner (``step.evaluate``: the same product
+#                             in a chunk of the step's size): equal
+DGO_BF16_BAR = 5e-3         # new_val vs the winner's parameters from
+#                             apply_subspace's ordered sum, evaluated
+#                             alone: float32 sums that differ in rounding
+#                             and bf16 kernels of another shape (measured
+#                             3.6e-4 to 2.7e-3 on an H100)
+DGO_SAMPLE = 8              # children held against the parent in bf16
+#                             and float32 each step
+DRY_CELLS = (("qwen2-1.5b", "train_4k"), ("deepseek-v3-671b", "train_4k"))
+DRY_LOG = ROOT / "build" / "chip_smoke_dryrun"     # .out / .err
+
+
+def _fleet_run(args, timeout=600) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    code = FLEET_PAYLOAD.replace("PROBLEM", repr(FLEET_PROBLEM)).replace(
+        "ITERS", str(FLEET_ITERS)).replace("DEVICE", repr(FLEET_DEVICE))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.launcher", *args, "--",
+         sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=timeout)
+    check(out.returncode == 0, f"fleet {args}: rc {out.returncode}: "
+                               f"{out.stderr[-3000:]}")
+    rows = [json.loads(ln) for ln in out.stdout.splitlines()
+            if ln.startswith("{")]
+    return {row["rank"]: row for row in rows}
+
+
+def phase_fleet(dev) -> dict:
+    """12a: ``solve(remote_sensing, Distributed())`` at full width, 64
+    iterations, seed 0, in a launcher fleet of 2 processes x 4 shards
+    (each worker's popstep on the one card, the (value, id) pairs over
+    gloo) and in one process of 8 shards: both workers' best_f and
+    history ``==`` the single process's; each worker's popstep launches
+    and wall per step printed.  Returns ``by_path``'s fleet entry."""
+    k, n = FLEET_SHAPE
+    fleet = _fleet_run(["--processes", str(k), "--devices", str(n)])
+    single = _fleet_run(["--devices", str(k * n)])[0]
+    check(sorted(fleet) == list(range(k)), f"fleet ranks {sorted(fleet)}")
+    per_single = single["wall"] / max(single["iterations"], 1)
+    for rank, row in sorted(fleet.items()):
+        same = (row["best_f"] == single["best_f"]
+                and row["history"] == single["history"])
+        per = row["wall"] / max(row["iterations"], 1)
+        print(f"[fleet] worker {rank} of {k} (mesh {row['shards']} shards, "
+              f"4 stepped here): best_f {row['best_f']!r}, "
+              f"{row['iterations']} iterations, popstep launches "
+              f"{row['launches']} (fold {row['fold_launches']}), wall "
+              f"{row['wall']:.3f} s = {1e3 * per:.3f} ms a step; "
+              f"== single process: {same}")
+        check(same, f"fleet worker {rank}: best_f {row['best_f']} / "
+                    f"history {row['history'][-3:]} vs single "
+                    f"{single['best_f']} / {single['history'][-3:]}")
+        check(row["shards"] == [k * n] and row["fold_launches"] == 0
+              and row["iterations"] <= row["launches"]
+              <= row["iterations"] + 16,
+              f"fleet worker {rank}: shards {row['shards']}, launches "
+              f"{row['launches']} + {row['fold_launches']} for "
+              f"{row['iterations']} iterations")
+    print(f"[fleet] single process, {k * n} shards: best_f "
+          f"{single['best_f']!r}, {single['iterations']} iterations, "
+          f"popstep launches {single['launches']}, wall "
+          f"{single['wall']:.3f} s = {1e3 * per_single:.3f} ms a step; "
+          f"the fleet's per-step exchange costs "
+          f"{1e3 * (max(r['wall'] / max(r['iterations'], 1) for r in fleet.values()) - per_single):.3f} ms a step")
+    return {"fleet": (sum(r["launches"] for r in fleet.values()),
+                      sum(r["fold_launches"] for r in fleet.values()))}
+
+
+def _nbytes_local(tree) -> int:
+    from torch.distributed.tensor import DTensor
+
+    import torch
+    if isinstance(tree, DTensor):
+        t = tree.to_local()
+        return t.numel() * t.element_size()
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_nbytes_local(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes_local(v) for v in tree)
+    return 0
+
+
+def _cell_report(label, cell, args, wall, dev) -> None:
+    import torch
+
+    from repro_torch.launch import dryrun
+    want = dryrun.cell_bytes(cell)["argument_size_in_bytes"]
+    got = _nbytes_local(args)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[steps] {label}: wall {wall:.3f} s, peak memory "
+          f"{peak / 2**30:.2f} GiB, arguments {got} bytes a device (the dry "
+          f"run's record of this cell on a (1, 1) mesh: {want})")
+    check(got == want, f"steps {label}: arguments {got} bytes, the dry run "
+                       f"says {want}")
+
+
+def phase_steps(dev) -> int:
+    """12b: ``build_cell`` on a (1, 1) NCCL mesh, qwen2-1.5b at full width
+    in bf16 through the steps (each cut printed): train_4k at global batch
+    8 (two microbatches of 4; its loss == the mean of ``lm_loss`` over
+    them within 1e-6, the parameters move), prefill_32k at batch 1 through
+    the bf16 flash kernel (28 launches; logits within 2e-2 x max(1, |x|)
+    of the same step without the kernel), decode_32k at batch 8 against a
+    32,768-token cache (finite logits, the plain route's greedy token).
+    Returns the flash launches of the prefill step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.launch.mesh import ensure_process_group, make_host_mesh
+    from repro_torch.launch.steps import (
+        build_cell, make_prefill_step, place)
+    from repro_torch.models import init_model, lm_decode, lm_loss, lm_prefill
+    from repro_torch.optim.gradient import AdamWConfig, adamw_init
+
+    gc.collect()                 # the earlier phases' tensors, cached blocks
+    torch.cuda.empty_cache()
+    ensure_process_group(dev)
+    mesh = make_host_mesh(model=1)
+    arch = get_arch(STEPS_ARCH)
+    params = init_model(arch, torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16).tree()
+    rng = np.random.default_rng(12)
+    cuts = dict(STEPS_SHAPES)
+
+    # train_4k
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=cuts["train_4k"])
+    # no warm-up, so the first step's update (lr 3e-4) shows in bf16
+    cell = build_cell(arch, shape, mesh,
+                      opt_cfg=AdamWConfig(warmup_steps=1))
+    print(f"[steps] {STEPS_ARCH} train_4k cut to global batch "
+          f"{shape.global_batch} (of {SHAPES['train_4k'].global_batch}): "
+          f"policy {cell.meta['policy']}, {cell.meta['n_micro']} "
+          f"microbatches of {cell.meta['microbatch']}")
+    n_micro, mb = cell.meta["n_micro"], cell.meta["microbatch"]
+    toks = torch.from_numpy(rng.integers(0, arch.vocab_size, (
+        n_micro, mb, shape.seq_len)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+    with torch.no_grad():
+        want = sum(float(lm_loss(params, arch, {
+            "tokens": toks[i].long(), "labels": batch["labels"][i].long()}))
+            for i in range(n_micro)) / n_micro
+    before = params["embed"]["table"].float().clone()
+    args = (place(params, cell.in_shardings[0]),
+            place(adamw_init(params), cell.in_shardings[1]),
+            place(batch, cell.in_shardings[2]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    new_p, _, loss = cell.step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _cell_report("train_4k", cell, args, wall, dev)
+    after = new_p["embed"]["table"].to_local().float()
+    moved = float((after - before).abs().max())
+    print(f"[steps] train_4k loss {float(loss)!r} vs lm_loss over the "
+          f"microbatches {want!r}; the embedding moved by up to "
+          f"{moved:.3g}")
+    check(abs(float(loss) - want) <= 1e-6 * abs(want),
+          f"steps train_4k: loss {float(loss)} vs lm_loss {want}")
+    check(moved > 0, "steps train_4k: the parameters did not move")
+    del args, new_p, loss
+    torch.cuda.empty_cache()
+
+    # prefill_32k through the bf16 kernel
+    flash_arch = dataclasses.replace(arch, use_flash_attention=True)
+    shape = dataclasses.replace(SHAPES["prefill_32k"],
+                                global_batch=cuts["prefill_32k"])
+    cell = build_cell(flash_arch, shape, mesh)
+    plain = build_cell(arch, shape, mesh)
+    toks = torch.from_numpy(rng.integers(0, arch.vocab_size, (
+        shape.global_batch, shape.seq_len)).astype(np.int32)).to(dev)
+    pp = place(params, cell.in_shardings[0])
+    b = place({"tokens": toks}, cell.in_shardings[1])
+    cell.step(pp, b)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = cell.step(pp, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_flash = flash.launches
+    _cell_report(f"prefill_32k (batch {shape.global_batch} of "
+                 f"{SHAPES['prefill_32k'].global_batch})", cell, (pp, b),
+                 wall, dev)
+    want, _ = plain.step(pp, b)
+    got, want = logits.to_local().float(), want.to_local().float()
+    d = _max_abs(got, want)
+    bar = 2e-2 * max(1.0, float(want.abs().max()))
+    print(f"[steps] prefill_32k flash launches {n_flash} (want "
+          f"{arch.n_layers}); logits vs the step without the kernel: max "
+          f"|diff| {d:.3g} (bar {bar:.3g})")
+    check(n_flash == arch.n_layers, f"steps prefill: {n_flash} flash "
+                                    f"launches, want {arch.n_layers}")
+    check(bool(got.isfinite().all()) and d <= bar,
+          f"steps prefill: logits differ by {d:.3g} > {bar:.3g}")
+    del logits, want, got
+    torch.cuda.empty_cache()
+
+    # decode_32k against a 32,768-token cache
+    shape = dataclasses.replace(SHAPES["decode_32k"],
+                                global_batch=cuts["decode_32k"])
+    cell = build_cell(arch, shape, mesh, prompt_len=STEPS_PROMPT)
+    prompt = torch.from_numpy(rng.integers(0, arch.vocab_size, (
+        shape.global_batch, STEPS_PROMPT))).to(dev)
+    prefill = make_prefill_step(arch, shape.seq_len, torch.bfloat16,
+                                mesh=mesh, out_layouts=(
+                                    cell.in_shardings[1], cell.in_shardings[2]))
+    _, cache = prefill(pp, {"tokens": prompt})
+    tok = place(prompt[:, -1].to(torch.int32), cell.in_shardings[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits, _ = cell.step(pp, tok, cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _cell_report(f"decode_32k (batch {shape.global_batch} of "
+                 f"{SHAPES['decode_32k'].global_batch})", cell,
+                 (pp, tok, cache), wall, dev)
+    got = logits.to_local().float()
+    with torch.no_grad():
+        _, pc = lm_prefill(params, arch, {"tokens": prompt}, shape.seq_len)
+        want, _ = lm_decode(params, arch, prompt[:, -1], pc)
+    ta, tb = got.argmax(-1), want.float().argmax(-1)
+    bar = 2e-2 * max(1.0, float(want.abs().max()))
+    parted = [r for r in torch.nonzero(ta != tb).flatten().tolist()]
+    for r in parted:
+        gap = abs(float(want[r, ta[r]]) - float(want[r, tb[r]]))
+        check(gap <= bar, f"steps decode: row {r} token {int(ta[r])} vs "
+                          f"{int(tb[r])}, {gap:.3g} apart: not a near-tie")
+    print(f"[steps] decode_32k: logits finite {bool(got.isfinite().all())}, "
+          f"greedy tokens vs lm_prefill + lm_decode: "
+          + (f"part at near-ties in rows {parted}" if parted
+             else "identical"))
+    check(bool(got.isfinite().all()), "steps decode: non-finite logits")
+    del pp, cache, params
+    torch.cuda.empty_cache()
+    return n_flash
+
+
+def phase_dgo_step(dev) -> None:
+    """12c: ``make_dgo_train_step`` on one rank: xlstm-125m at full
+    width and depth, bf16 weights, d_sub 64 at 4 bits (511 children), B 8,
+    S 512, two steps.  Each step: ``improved`` iff ``new_val <
+    parent_val``; ``new_val`` == the step's own evaluation of the winner
+    (``step.evaluate``) within ``DGO_OWN_BAR``.  Printed, not checked:
+    the parent, the winner and ``DGO_SAMPLE`` children in bf16 and in
+    float32 through the same product, and how many comparisons with the
+    parent float32 reverses.  The last winner's ``new_val`` == ``lm_loss``
+    at ``materialize_winner(new_bits)`` within ``DGO_BF16_BAR``.  Seconds
+    a step and children a second."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.encoding import Encoding, encode
+    from repro_torch.core.population import schedule_tables
+    from repro_torch.core.subspace import (
+        make_dgo_train_step, materialize_winner)
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import lm_synthetic_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_model, lm_loss
+
+    import dataclasses
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = DGO_CELL
+    arch = dataclasses.replace(get_arch(c["arch"]),
+                               loss_chunk=c["loss_chunk"])
+    mesh = make_host_mesh(model=1)
+    params = init_model(arch, torch.Generator(device=dev).manual_seed(1),
+                        torch.bfloat16).tree()
+    enc = Encoding(n_vars=c["d_sub"], bits=c["bits"], lo=-1.0, hi=1.0)
+    tables = schedule_tables(enc.n_vars, (enc.bits,), enc.lo, enc.hi,
+                             device=dev)
+    sample = torch.arange(DGO_SAMPLE, device=dev) * (
+        enc.population // DGO_SAMPLE)
+    key = prng.PRNGKey(3)
+    tokens, labels = lm_synthetic_batch(prng.PRNGKey(2), c["batch"],
+                                        c["seq"], arch.vocab_size)
+    batch = {"tokens": torch.from_numpy(tokens).long().to(dev),
+             "labels": torch.from_numpy(labels).long().to(dev)}
+
+    def loss_fn(p, b):
+        return lm_loss(p, arch, b, dtype=torch.bfloat16)
+
+    def loss32(p, b):
+        return lm_loss(p, arch, b, dtype=torch.float32)
+
+    step = make_dgo_train_step(loss_fn, enc, mesh,
+                               pop_axes=("data", "model"),
+                               alpha=c["alpha"],
+                               chunk_bytes=DGO_CHUNK_BYTES)
+    bits = encode(torch.zeros(enc.n_vars, device=dev), enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = step.evaluate(params, batch, bits[None], key)[0]
+    torch.cuda.synchronize()
+    n_p = sum(t.numel() for t in tree_leaves(params))
+    print(f"[dgo-step] {c['arch']} full width and depth ({arch.n_layers} "
+          f"layers, {n_p} parameters), bf16, d_sub {enc.n_vars} x "
+          f"{enc.bits} bits = {enc.population} children, B {c['batch']} S "
+          f"{c['seq']}, cross-entropy chunk {arch.loss_chunk}: parent loss "
+          f"{float(val)!r} (the step's own evaluation; holding the "
+          f"({enc.n_vars}, P) directions took "
+          f"{time.perf_counter() - t0:.2f} s)")
+    for i in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_bits, new_val, improved = step(params, batch, bits, val, key)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(bool(improved) == bool(new_val < val),
+              f"dgo-step {i}: improved {bool(improved)} but new "
+              f"{float(new_val)} vs parent {float(val)}")
+        own = float(step.evaluate(params, batch, new_bits[None], key)[0])
+        rel = abs(float(new_val) - own) / abs(own)
+        rows = torch.cat([torch.stack([bits, new_bits]),
+                          tables.children(bits, sample, 0)])
+        b16, f32 = (step.evaluate(params, batch, rows, key, fn).tolist()
+                    for fn in (loss_fn, loss32))
+        flips = sum((b16[j] < b16[0]) != (f32[j] < f32[0])
+                    for j in range(2, len(rows)))
+        noise = max(abs(x - y) for x, y in zip(b16, f32))
+        kept = (f32[1] < f32[0]) == bool(improved)
+        print(f"[dgo-step] step {i}: {secs:.2f} s "
+              f"({enc.population / secs:.1f} children/s), improved "
+              f"{bool(improved)}, new_val {float(new_val)!r} (parent "
+              f"{float(val)!r}, margin {float(val) - float(new_val):.6g}); "
+              f"the step's own evaluation of the winner {own!r} (rel "
+              f"{rel:.3g}, bar {DGO_OWN_BAR}); parent and winner in "
+              f"float32 {f32[0]!r}, {f32[1]!r}: float32 "
+              f"{'keeps' if kept else 'reverses'} the step's decision; of {DGO_SAMPLE} children float32 "
+              f"reverses {flips} comparisons with the parent; bf16 vs "
+              f"float32 up to {noise:.4g} ({b16})")
+        check(rel <= DGO_OWN_BAR, f"dgo-step {i}: new_val "
+                                  f"{float(new_val)} vs {own}")
+        bits, val = new_bits, new_val
+    with torch.no_grad():
+        alone = float(loss_fn(materialize_winner(
+            params, bits, enc, key, c["alpha"]), batch))
+    rel = abs(float(val) - alone) / abs(alone)
+    print(f"[dgo-step] the last winner's lm_loss at materialize_winner "
+          f"alone {alone!r} vs new_val {float(val)!r} (rel {rel:.3g}, bar "
+          f"{DGO_BF16_BAR}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(rel <= DGO_BF16_BAR, f"dgo-step: new_val {float(val)} vs the "
+                               f"materialized winner's {alone}")
+    del step, params
+    torch.cuda.empty_cache()
+
+
+def start_dry_run() -> subprocess.Popen:
+    """12d, started first and read last: the meta-device dry run of
+    ``DRY_CELLS`` and the subspace-DGO cell on pod16x16 (256 fake ranks)
+    in a process of its own (the fake group is global to a process); CPU
+    work only (deepseek-v3's 16 microbatches of 61 layers take minutes),
+    at a lower priority than the timed phases."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    code = ("import json, logging\n"
+            "logging.getLogger('torch.distributed.tensor._redistribute')"
+            ".setLevel(logging.ERROR)\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for a, s in {DRY_CELLS!r}:\n"
+            "    r = dryrun.run_cell(a, s, False)\n"
+            "    print(json.dumps(r), flush=True)\n"
+            "print(json.dumps(dryrun.run_dgo_cell(False)), flush=True)\n")
+    env["OMP_NUM_THREADS"] = "1"         # meta tensors: nothing to compute
+    # files, not pipes: nobody reads a pipe until 12d, and a full one
+    # would stop the dry run
+    DRY_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(DRY_LOG.with_suffix(".out"), "w") as out, \
+            open(DRY_LOG.with_suffix(".err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                cwd=ROOT, stdout=out, stderr=err,
+                                preexec_fn=lambda: os.nice(10))
+    atexit.register(proc.kill)            # a failed phase leaves no process
+    return proc
+
+
+def phase_dry_run(proc: subprocess.Popen) -> None:
+    """12d's records: argument bytes a device, the policy and the
+    collective counts by kind; the DGO cell's table only the (value, id)
+    all-gathers."""
+    t0 = time.perf_counter()
+    proc.wait(timeout=900)
+    out = DRY_LOG.with_suffix(".out").read_text()
+    err = DRY_LOG.with_suffix(".err").read_text()
+    print(f"[dryrun] waited {time.perf_counter() - t0:.1f} s for it")
+    check(proc.returncode == 0, f"dry run: rc {proc.returncode}: "
+                                f"{err[-3000:]}")
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(len(recs) == len(DRY_CELLS) + 1, f"dry run: {len(recs)} records")
+    for rec in recs:
+        counts = {k: v["count"] for k, v in rec["collectives"].items()}
+        wire = {k: v["executed_wire_bytes"]
+                for k, v in rec["collectives"].items()}
+        mem = rec.get("memory_analysis", {})
+        print(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']}: "
+              f"{rec['step_s']} s; arguments "
+              f"{mem.get('argument_size_in_bytes')} bytes a device; "
+              f"meta {rec.get('meta')}; collectives {counts}, wire bytes "
+              f"{wire}; flops {rec['cost_analysis']['flops']:.4g}")
+    dgo = recs[-1]
+    check(set(dgo["collectives"]) == {"all-gather"}
+          and dgo["collectives"]["all-gather"]["bytes"]
+          <= 16 * dgo["shards"],
+          f"dry run: the DGO cell's table {dgo['collectives']}")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3651,6 +4156,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    dry = start_dry_run()
     phase_build()
     rs = phase_kernel_vs_plain(dev)
     bound_ms, bound_by = popstep_bound_ms(rs)
@@ -3675,6 +4181,11 @@ def main() -> None:
     zoo = phase_zoo(dev, 10, ZOO, ZOO_TRAIN, ZOO_SUBSPACE)
     zoo2 = phase_zoo(dev, 11, ZOO2, [name for name, *_ in ZOO2],
                      ZOO2_SUBSPACE)
+    timing_for("popstep")
+    by_path.update(phase_fleet(dev))
+    steps_flash = phase_steps(dev)
+    phase_dgo_step(dev)
+    phase_dry_run(dry)
     n_launch = sum(n for n, _ in by_path.values())
     n_fold = sum(f for _, f in by_path.values())
     zoo_launches = sum(m["launches"] for m in zoo.values())
@@ -3765,7 +4276,8 @@ def main() -> None:
         "name": "flash_attention_bf16", "route": "cuda",
         "source": f"{kernels_dir}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
-        "launches": served["bf16_launches"],
+        "launches": served["bf16_launches"] + steps_flash,
+        "by_path": {"serve": served["bf16_launches"], "steps": steps_flash},
         "max_abs_err": ft["max_abs_err_bf16"],
         "ms": ft["serve_bf16"], "plain_ms": ft["serve_plain_bf16"],
         "bound_ms": ft["serve_bf16_bound"],

@@ -33,7 +33,8 @@ from repro_torch.core.solver import (
     solve_many,
     strategy_names,
 )
-from repro_torch.core.subspace import apply_subspace, materialize_winner
+from repro_torch.core.subspace import (
+    apply_subspace, make_dgo_train_step, materialize_winner)
 
 __all__ = [
     # the solver facade
@@ -75,5 +76,6 @@ __all__ = [
     "make_distributed_step",
     # subspace DGO (LM training path)
     "apply_subspace",
+    "make_dgo_train_step",
     "materialize_winner",
 ]

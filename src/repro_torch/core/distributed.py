@@ -79,11 +79,13 @@ and stream.
 from __future__ import annotations
 
 import math
+import os
 import threading
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.cache import get_cache
 from repro_torch.core.encoding import Encoding, _f32, decode, decode_np, encode
@@ -168,6 +170,57 @@ class MeshGeometry(NamedTuple):
                                  f"mesh {self.axis_names}")
             n *= self.shape[name]
         return n
+
+
+def fleet() -> tuple[int, int] | None:
+    """(rank, world size) of a launcher fleet (``launch/launcher.py
+    --processes K``: the default ``torch.distributed`` group, when it has
+    more than one rank), else None."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    world = dist.get_world_size()
+    return (dist.get_rank(), world) if world > 1 else None
+
+
+# the backend of a group whose ranks each own a GPU: NCCL for CUDA tensors
+# beside gloo for host ones (the host copies of the fleet's pairs)
+CARD_BACKEND = "cpu:gloo,cuda:nccl"
+
+
+def cuda_collectives() -> bool:
+    """True when the default group carries CUDA tensors (NCCL); a gloo
+    group (ranks sharing one GPU, or on the CPU) carries host copies."""
+    return "nccl" in str(dist.get_backend())
+
+
+def default_shards() -> int:
+    """The shards of a default mesh: the launcher's ``--devices``
+    (``DGO_DEVICES``, else 1) in each process of the fleet."""
+    per = int(os.environ.get("DGO_DEVICES") or 1)
+    fl = fleet()
+    return per * (fl[1] if fl else 1)
+
+
+def _fleet_fold(val: torch.Tensor, gid: torch.Tensor, pop: int):
+    """The step's winner across a fleet: each process's (value, child id)
+    pairs (one, or one a restart) all-gathered as 8-byte pairs over the
+    default group, host copies, and folded by the cross-shard rule
+    (``popstep_ops._shard_fold``; it is associative, so folding the
+    processes' folds gives the fold over every shard)."""
+    world = dist.get_world_size()
+    pair = torch.stack([val.detach().reshape(-1).to("cpu", torch.float32)
+                        .view(torch.int32),
+                        gid.reshape(-1).to("cpu", torch.int32)], dim=-1)
+    got = [torch.empty_like(pair) for _ in range(world)]
+    dist.all_gather(got, pair)
+    allp = torch.stack(got)                           # (world, R, 2)
+    vals = allp[..., 0].contiguous().view(torch.float32)
+    ids = allp[..., 1]
+    folded = [popstep_ops._shard_fold(vals[:, r], ids[:, r], pop)
+              for r in range(pair.shape[0])]
+    v = torch.stack([f[0] for f in folded]).reshape(val.shape)
+    g = torch.stack([f[1] for f in folded]).reshape(gid.shape)
+    return v.to(val.device), g.to(gid.device)
 
 
 def _n_shards(mesh, pop_axes: Sequence[str]) -> int:
@@ -292,9 +345,20 @@ def _build_shard_step(objective, enc: Encoding, plan: _ShardPlan,
 
     With R restarts the kernel steps every live parent in one launch;
     the plain inners run the one-parent step on each parent, so a
-    parent's result does not depend on the others."""
+    parent's result does not depend on the others.
+
+    In a fleet (:func:`fleet`) of W processes, process ``r`` steps shards
+    ``r * S/W .. (r+1) * S/W - 1`` of the S and the processes' (value,
+    id) pairs are all-gathered every step (:func:`_fleet_fold`), so every
+    process takes the step one process of S shards takes."""
     pop, n_shards = enc.population, plan.n_shards
-    shape = (n_shards, plan.n_blocks, plan.block)
+    fl = fleet()
+    if fl is not None and n_shards % fl[1]:
+        raise ValueError(f"{n_shards} shards do not divide over a fleet of "
+                         f"{fl[1]} processes")
+    rank, local = (fl[0], n_shards // fl[1]) if fl else (0, n_shards)
+    rows = plan.n_blocks * plan.block
+    shape = (local, plan.n_blocks, plan.block)
     f_batch = objective.fn
     pat = table_on("patterns", enc.n_bits, device)          # (2N-1, N) int8
     if inner == "fused":
@@ -321,10 +385,13 @@ def _build_shard_step(objective, enc: Encoding, plan: _ShardPlan,
         if fn is None:
             ids_c, valid = _shard_rows(enc, plan, alive, phase, bounded,
                                        device)
+            if fl is not None:         # this process's shards
+                ids_c = ids_c[rank * local * rows:(rank + 1) * local * rows]
+                valid = valid[rank * local * rows:(rank + 1) * local * rows]
             if inner == "popstep":     # one kernel launch per step
                 fn = popstep_ops.prepare_step_ids(
                     objective, ids_c, enc, valid=valid,
-                    virtual_block=plan.block, n_shards=n_shards,
+                    virtual_block=plan.block, n_shards=local,
                     restarts=restarts)
             elif restarts is None:
                 def fn(parent_bits, ids_c=ids_c, valid=valid):
@@ -338,6 +405,9 @@ def _build_shard_step(objective, enc: Encoding, plan: _ShardPlan,
                     return popstep_ops.each_parent(
                         lambda p: plain_best(p, ids_c, valid), parents,
                         flags, pop)
+            if fl is not None:
+                def fn(*args, local_fn=fn):
+                    return _fleet_fold(*local_fn(*args), pop)
             bindings[key] = fn
         return fn
 

@@ -39,7 +39,8 @@ from repro_torch.core import objectives as objectives_registry
 from repro_torch.core import prng
 from repro_torch.core.cache import get_cache
 from repro_torch.core.dgo import DGOConfig, random_start
-from repro_torch.core.distributed import MeshGeometry, resolve_device
+from repro_torch.core.distributed import (
+    MeshGeometry, default_shards, resolve_device)
 from repro_torch.core.encoding import Encoding, decode, decode_np
 from repro_torch.core.objectives import KernelForm, Objective
 
@@ -416,7 +417,9 @@ _MESH_AXIS_NAMES = {1: ("data",), 2: ("data", "model"),
 
 def resolve_mesh(mesh=None) -> MeshGeometry:
     """Normalize a mesh-geometry parameter (``repro.core.solver.
-    resolve_mesh``): ``None`` — one shard on ``("data",)``; an ``int`` N —
+    resolve_mesh``): ``None`` — ``("data",)`` of the launcher's shards,
+    ``--devices`` (1 without it) in each process of a fleet
+    (``core.distributed.default_shards``); an ``int`` N —
     ``("data",)`` of N; a shape tuple — ``(data,)``, ``(data, model)`` or
     ``(pod, data, model)`` with the conventional axis names; ``((name,
     size), ...)`` pairs — explicit geometry; a :class:`MeshGeometry` —
@@ -424,7 +427,7 @@ def resolve_mesh(mesh=None) -> MeshGeometry:
     virtual, and no device count is checked.  Equal geometries are equal
     values, so cache keys stay stable across calls."""
     if mesh is None:
-        return MeshGeometry(("data",), (1,))
+        return MeshGeometry(("data",), (default_shards(),))
     if isinstance(mesh, MeshGeometry):
         return mesh
     if isinstance(mesh, (int, np.integer)):

@@ -27,9 +27,12 @@ scan does.
   matrix product ``z @ directions``, so its parameters agree with
   :func:`apply_subspace`'s to float32 rounding, not bit for bit.
 
-``make_dgo_train_step`` (the reference's production-mesh dry-run target)
-is not ported yet: it waits with ``launch/steps.py`` and
-``launch/dryrun.py`` (ROADMAP queue 1 #9).
+* :func:`make_dgo_train_step` is the production-mesh step: each rank of
+  a ``DeviceMesh`` evaluates its ``ceil(P / n_shards)`` children (the
+  population split over ``pop_axes``) under ``torch.func.vmap`` in
+  chunks of ``CHUNK``, and the ranks' (value, child id) pairs are
+  all-gathered, one gather a population axis: the only traffic of an
+  iteration, however large the model.
 """
 from __future__ import annotations
 
@@ -115,6 +118,8 @@ class _TuningState:
                                  for k in layout.keys]).to(device)
         self.dirs = torch.empty((d, layout.size), dtype=torch.float32,
                                 device=device)
+        if device.type == "meta":               # shapes only (dry run)
+            layout = _Layout((), (), (), 0)
         for k, shape, off in zip(layout.keys, layout.shapes,
                                  layout.offsets):
             kleaf = prng.fold_in(key, index[k])
@@ -125,6 +130,18 @@ class _TuningState:
         self.data = {name: t.to(device) for name, t in data.items()}
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+
+def _unflatten(theta: torch.Tensor, layout: _Layout, like):
+    """(C, P) flat parameters -> the tree of ``like`` with a leading child
+    axis on every leaf (a stacked leaf as (L, C, ...), split into its
+    layers)."""
+    blocks = {k: theta[:, off:off + math.prod(shape)].reshape(
+        (theta.shape[0],) + shape)
+        for k, shape, off in zip(layout.keys, layout.shapes,
+                                 layout.offsets)}
+    return rebuild(like, lambda k, leaf: blocks[k].movedim(0, 1)
+                   if isinstance(leaf, Layers) else blocks[k])
 
 
 def _layout(params0) -> _Layout:
@@ -198,17 +215,6 @@ def lm_tuning_objective(arch_name: str, *, d: int = 24, bits: int = 4,
                                            device)
             return built[name]
 
-    def unflatten(theta: torch.Tensor, layout: _Layout, like):
-        """(C, P) flat parameters -> the model tree with a leading child
-        axis on every leaf (a stacked leaf as (L, C, ...), split into
-        its layers)."""
-        blocks = {k: theta[:, off:off + math.prod(shape)].reshape(
-            (theta.shape[0],) + shape)
-            for k, shape, off in zip(layout.keys, layout.shapes,
-                                     layout.offsets)}
-        return rebuild(like, lambda k, leaf: blocks[k].movedim(0, 1)
-                       if isinstance(leaf, Layers) else blocks[k])
-
     def loss_one(tree, data):
         return lm_loss(tree, arch, data, dtype=torch.float32)
 
@@ -220,7 +226,7 @@ def lm_tuning_objective(arch_name: str, *, d: int = 24, bits: int = 4,
             for c0 in range(0, zs.shape[0], CHUNK):
                 zc = zs[c0:c0 + CHUNK].float()
                 theta = st.theta0 + scale * (zc @ st.dirs)
-                tree = unflatten(theta, layout, params0)
+                tree = _unflatten(theta, layout, params0)
                 out.append(torch.func.vmap(loss_one, in_dims=(0, None))(
                     tree, st.data))
         return torch.cat(out) if out else zs.new_zeros((0,))
@@ -240,6 +246,160 @@ def lm_tuning_objective(arch_name: str, *, d: int = 24, bits: int = 4,
         signature=("subspace-lm", arch_name, d, bits, float(alpha),
                    batch, seq, seed, arch.n_layers),
         materialize=materialize)
+
+
+# ---------------------------------------------------------------------------
+# the production-mesh train step
+# ---------------------------------------------------------------------------
+
+def _mesh_shard(mesh, pop_axes) -> tuple[int, int]:
+    """(this rank's shard index over ``pop_axes``, their shard count)."""
+    if mesh is None:
+        return 0, 1
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    shard, n = 0, 1
+    for a in pop_axes:
+        i = names.index(a)
+        shard = shard * mesh.mesh.shape[i] + coord[i]
+        n *= mesh.mesh.shape[i]
+    return shard, n
+
+
+def _gather_pairs(mesh, pop_axes, val: torch.Tensor, cid: torch.Tensor):
+    """All (value, id) pairs, gathered one population axis after another,
+    each gather adding a leading axis (the reference's order)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import cuda_collectives
+    vals, ids = val.reshape(1), cid.reshape(1).to(torch.int32)
+    if mesh is None:
+        return vals, ids
+    if vals.is_cuda and not cuda_collectives():   # gloo: host copies
+        vals, ids = vals.cpu(), ids.cpu()
+    for a in pop_axes:
+        group = mesh.get_group(a)
+        pair = torch.stack([vals.float().view(torch.int32), ids], -1)
+        n = dist.get_world_size(group)
+        got = [torch.empty_like(pair) for _ in range(n)]
+        dist.all_gather(got, pair.contiguous(), group=group)
+        allp = torch.stack(got).reshape(-1, 2)
+        vals = allp[:, 0].contiguous().view(torch.float32)
+        ids = allp[:, 1].contiguous()
+    return vals, ids
+
+
+def make_dgo_train_step(loss_fn: Callable, enc: Encoding, mesh=None,
+                        pop_axes=("data",), alpha: float = 1.0,
+                        children_per_step: int | None = None,
+                        chunk_bytes: int = 1 << 31):
+    """Build the DGO training step for a zoo model.
+
+    ``loss_fn(params, batch) -> 0-d tensor`` must be ``torch.func.vmap``-
+    able over its parameters.  ``mesh`` is a ``DeviceMesh`` (None: one
+    shard); the rank's shard index is its coordinate over ``pop_axes``,
+    and it evaluates ``ceil(P' / n_shards)`` children (P' =
+    ``children_per_step`` or the full 2N-1), ``CHUNK`` at a time under
+    vmap: theta_0 + alpha/sqrt(d) * z @ directions (the directions held
+    once per params0, key and device, as ``lm_tuning_objective`` holds
+    them; a chunk is at most ``CHUNK`` children, the rank's count and
+    ``chunk_bytes`` of float32 parameters, and the last is padded to the
+    others' size, so a child's value does not depend on its chunk).  Children and
+    decode are ``schedule_tables``' at one resolution.
+
+    step(params0, batch, parent_bits, parent_val, key)
+      -> (new_bits, new_val, improved)
+
+    A rank's best is its first smallest value (NaN never wins; (+inf, 0)
+    when nothing beats +inf, as the reference's scan); the pairs are
+    all-gathered, one gather a population axis, and ``argmin`` over them
+    picks the winner, which replaces the parent when strictly better.
+
+    ``step.evaluate(params0, batch, bits, key, fn=None)`` gives the (K,)
+    losses of the (K, n) bit strings ``bits`` through the step's own
+    parameters (the same product): with ``fn`` None exactly as the step
+    evaluates its children (in its padded chunks, so a child's value is
+    the step's), with ``fn`` given by ``fn`` in one vmap over the K."""
+    from repro_torch.core.population import schedule_tables
+
+    pop = children_per_step or enc.population
+    shard, n_shards = _mesh_shard(mesh, pop_axes)
+    chunk = math.ceil(pop / n_shards)
+    scale = float(np.float32(alpha / math.sqrt(enc.n_vars)))
+    held: dict = {}
+
+    def state(params0, key, device):
+        tag = (id(params0), tuple(np.asarray(key).tolist()), str(device))
+        if held.get("tag") != tag:
+            held.clear()
+            layout = _layout(params0)
+            # params0 is held too, so its id is not reused while tagged
+            held.update(tag=tag, params0=params0, layout=layout,
+                        st=_TuningState(params0, layout, key, enc.n_vars,
+                                        {}, device))
+        return held["layout"], held["st"]
+
+    def losses(params0, batch, z, key, fn):
+        """``fn`` at theta_0 + scale * z @ directions for each row of z,
+        under vmap (the product scaled and shifted in place: the same
+        values as ``theta0 + scale * (z @ dirs)``, one (K, P) buffer)."""
+        layout, st = state(params0, key, z.device)
+        with torch.no_grad():
+            theta = (z.float() @ st.dirs).mul_(scale).add_(st.theta0)
+            tree = _unflatten(theta, layout, params0)
+            return torch.func.vmap(fn, in_dims=(0, None))(
+                tree, batch).float()
+
+    def per_chunk(params0, key, device) -> int:
+        layout, _ = state(params0, key, device)
+        return max(1, min(CHUNK, chunk,
+                          chunk_bytes // (4 * max(layout.size, 1))))
+
+    def step(params0, batch, parent_bits, parent_val, key):
+        dev = parent_bits.device
+        tables = schedule_tables(enc.n_vars, (enc.bits,), enc.lo, enc.hi,
+                                 device=dev)
+        per = per_chunk(params0, key, dev)
+        ar = torch.arange(-(-chunk // per) * per, device=dev)
+        offs = shard * chunk + ar
+        cid = torch.clamp_max(offs, pop - 1)
+        vals = []
+        for c0 in range(0, ar.shape[0], per):
+            kids = tables.children(parent_bits, cid[c0:c0 + per], 0)
+            vals.append(losses(params0, batch, tables.decode(kids, 0), key,
+                               loss_fn))
+        v = torch.where((ar < chunk) & (offs < pop), torch.cat(vals),
+                        torch.inf)
+        v2 = torch.where(torch.isnan(v), torch.inf, v)
+        best = v2.min()
+        at = torch.argmin(v2).reshape(1)      # a tensor index: no sync
+        local_id = torch.where(best < torch.inf,
+                               cid.index_select(0, at)[0], 0)
+        all_vals, all_ids = _gather_pairs(mesh, pop_axes, best, local_id)
+        w = torch.argmin(all_vals).reshape(1)
+        win_val = all_vals.index_select(0, w)[0].to(dev)
+        win_id = all_ids.index_select(0, w)[0].to(dev).long()
+        improved = win_val < parent_val
+        win_bits = tables.children(parent_bits, win_id.reshape(1), 0)[0]
+        new_bits = torch.where(improved, win_bits, parent_bits).to(
+            torch.int8)
+        new_val = torch.where(improved, win_val, parent_val)
+        return new_bits, new_val, improved
+
+    def evaluate(params0, batch, bits, key, fn=None):
+        tables = schedule_tables(enc.n_vars, (enc.bits,), enc.lo, enc.hi,
+                                 device=bits.device)
+        z = tables.decode(bits, 0)
+        if fn is not None:
+            return losses(params0, batch, z, key, fn)
+        per, k = per_chunk(params0, key, bits.device), z.shape[0]
+        z = torch.cat([z, z[-1:].expand(-(-k // per) * per - k, -1)])
+        return torch.cat([losses(params0, batch, z[c0:c0 + per], key,
+                                 loss_fn)
+                          for c0 in range(0, z.shape[0], per)])[:k]
+
+    step.evaluate = evaluate
+    return step
 
 
 def lm_tuning_factory(arch_name: str) -> Callable:

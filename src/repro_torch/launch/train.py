@@ -15,10 +15,19 @@ the reference's for the same ``--seed`` (``init_model`` from
 batches bit for bit, and a checkpoint holds the reference's leaves, so
 either package can resume the other's run.
 
-One card: ``--model-shards`` other than 1 raises (the reference builds a
-host mesh its step never uses; ``launch/mesh.py`` is ROADMAP queue 1 #7).
-The attention is the plain chunked path (``use_flash_attention=False``,
-as the reference trains: the flash kernel has no backward pass).
+The step is ``launch.steps.make_train_step`` (one microbatch).
+``--model-shards k`` other than 1 trains on a ``(data, model=k)`` mesh
+(``launch.mesh.make_host_mesh``, on the run's device) over a launcher
+fleet of a multiple of k ranks (``python -m repro_torch.launch.launcher
+--processes K -- python -m repro_torch.launch.train ... --model-shards
+k``): the parameters and moments are DTensors in the training layout
+(``launch.sharding.TRAIN_RULES``), each rank computes on its data shard
+of the batch, and a checkpoint holds the whole tensors (written by rank
+0).  A process group with fewer ranks raises ``ValueError``, and so does
+a run on the card whose fleet shares one GPU (a gloo group: NCCL takes
+no two ranks on one GPU).  The attention is the plain chunked path
+(``use_flash_attention=False``, as the reference trains: the flash
+kernel has no backward pass).
 ``run_training(args)`` runs on the CUDA card; ``device="cpu"`` runs it on
 the CPU.
 """
@@ -36,11 +45,12 @@ import torch
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import REGISTRY, get_arch, reduced
 from repro_torch.core import prng
-from repro_torch.core.distributed import resolve_device
+from repro_torch.core.distributed import fleet, resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
-from repro_torch.models.lm import init_model, lm_loss
-from repro_torch.optim.gradient import AdamWConfig, adamw_init, adamw_update
+from repro_torch.launch import steps
+from repro_torch.models.lm import init_model
+from repro_torch.optim.gradient import AdamWConfig, AdamWState, adamw_init
 from repro_torch.runtime import FailureInjector, SimulatedFailure
 
 
@@ -64,18 +74,29 @@ def build_argparser():
     return ap
 
 
-def train_step(params, opt_state, batch, arch, dtype, opt_cfg):
-    """One AdamW step: (params, opt_state, loss) with the loss a 0-d
-    tensor.  Gradients through autograd on detached aliases of the
-    parameters, so the caller's tree is never modified."""
-    live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = lm_loss(live, arch, batch, dtype=dtype)
-    leaves = tree_leaves(live)
-    grads = iter(torch.autograd.grad(loss, leaves))
-    grads = tree_map(lambda _: next(grads), live)
-    del live, leaves
-    params, opt_state = adamw_update(opt_cfg, grads, opt_state, params)
-    return params, opt_state, loss.detach()
+def make_step(arch, opt_cfg, dtype, mesh=None, layouts=None):
+    """The AdamW step of ``run_training``: (params, opt_state, batch) ->
+    (params, opt_state, loss), the loss a 0-d tensor and ``batch`` the
+    whole (B, ...) batch.  On a ``mesh`` (``layouts``: the parameters'
+    and moments' :class:`~repro_torch.launch.sharding.Layout` tree) each
+    rank computes on its data shard of the batch."""
+    if mesh is None:
+        fn, n, i = steps.make_train_step(arch, opt_cfg, 1, dtype), 1, 0
+    else:
+        fn = steps.mesh_scoped(steps.make_train_step(
+            arch, opt_cfg, 1, dtype,
+            constrain=steps.make_constrainer(arch, mesh, ("data",)),
+            grad_shardings=layouts, param_shardings=layouts,
+            moment_shardings=layouts, mesh=mesh, partial_axes=("data",)),
+            mesh)
+        n, i = mesh.size(0), mesh.get_coordinate()[0]
+
+    def step(params, opt_state, batch):
+        local = {k: v[None, i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+                 for k, v in batch.items()}
+        return fn(params, opt_state, local)
+
+    return step
 
 
 def run_training(args, device=None, keep_state: bool = False) -> dict:
@@ -88,11 +109,7 @@ def run_training(args, device=None, keep_state: bool = False) -> dict:
     ``device``: None is the CUDA card (``RuntimeError`` without one),
     ``"cpu"`` the CPU."""
     dev = resolve_device(device)
-    if args.model_shards != 1:
-        raise NotImplementedError(
-            f"--model-shards {args.model_shards}: the port trains on one "
-            f"card; model sharding needs launch/mesh.py (ROADMAP queue 1 "
-            f"#7)")
+    mesh = _model_mesh(args.model_shards, dev)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
@@ -111,10 +128,13 @@ def run_training(args, device=None, keep_state: bool = False) -> dict:
     ckpt_s: list[float] = []
     restarts = 0
 
+    layouts = None if mesh is None else _layouts(arch, dtype, mesh)
+    train_step = make_step(arch, opt_cfg, dtype, mesh, layouts)
+
     def fresh_state():
         params = init_model(arch, prng.PRNGKey(args.seed), dtype,
                             dev).tree()
-        return params, adamw_init(params)
+        return _place((params, adamw_init(params)), layouts)
 
     def sync():
         if dev.type == "cuda":
@@ -124,8 +144,8 @@ def run_training(args, device=None, keep_state: bool = False) -> dict:
     start = latest_step(ckpt_dir)
     step = 0
     if start is not None:
-        params, opt_state = restore_checkpoint(
-            ckpt_dir, start, (params, opt_state))
+        params, opt_state = _restore(ckpt_dir, start, (params, opt_state),
+                                     layouts)
         step = start
         print(f"[train] resumed from checkpoint step {step}")
 
@@ -136,8 +156,8 @@ def run_training(args, device=None, keep_state: bool = False) -> dict:
                 t_step = time.perf_counter()
                 batch = data.batch_at(step)
                 injector.maybe_fail(step)
-                params, opt_state, loss = train_step(
-                    params, opt_state, batch, arch, dtype, opt_cfg)
+                params, opt_state, loss = train_step(params, opt_state,
+                                                     batch)
                 loss = float(loss)
                 sync()
                 step_s.append(time.perf_counter() - t_step)
@@ -148,7 +168,7 @@ def run_training(args, device=None, keep_state: bool = False) -> dict:
                           f"({(time.time() - t0) / step:.2f}s/step)")
                 if step % args.ckpt_every == 0 or step == args.steps:
                     t_ck = time.perf_counter()
-                    save_checkpoint(ckpt_dir, step, (params, opt_state))
+                    _save(ckpt_dir, step, (params, opt_state), layouts)
                     ckpt_s.append(time.perf_counter() - t_ck)
             except SimulatedFailure as e:
                 restarts += 1
@@ -158,8 +178,8 @@ def run_training(args, device=None, keep_state: bool = False) -> dict:
                     params, opt_state = fresh_state()
                     step = 0
                 else:
-                    params, opt_state = restore_checkpoint(
-                        ckpt_dir, start, (params, opt_state))
+                    params, opt_state = _restore(
+                        ckpt_dir, start, (params, opt_state), layouts)
                     step = start
     finally:
         data.close()
@@ -171,6 +191,70 @@ def run_training(args, device=None, keep_state: bool = False) -> dict:
     if keep_state:
         out["state"] = (params, opt_state)
     return out
+
+
+def _model_mesh(k: int, dev):
+    """The (data, model=k) mesh of ``--model-shards k`` on ``dev`` (None
+    for 1)."""
+    if k == 1:
+        return None
+    fl = fleet()
+    world = fl[1] if fl else 1
+    if k < 1 or world % k:
+        raise ValueError(
+            f"--model-shards {k} needs a process group of a multiple of {k} "
+            f"ranks, this one has {world}: run python -m "
+            f"repro_torch.launch.launcher --processes {max(k, 1)} -- python "
+            f"-m repro_torch.launch.train ... --model-shards {k}")
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(model=k, device=dev)
+
+
+def _layouts(arch, dtype, mesh):
+    """The training layout of the parameters (and moments) over ``mesh``."""
+    from repro_torch.launch.sharding import TRAIN_RULES, param_shardings
+    from repro_torch.models.layers import abstract_params
+    from repro_torch.models.lm import model_axes, model_spec
+    return param_shardings(model_axes(arch),
+                           abstract_params(model_spec(arch), dtype), mesh,
+                           TRAIN_RULES)
+
+
+def _place(state, layouts):
+    """(params, opt_state) as DTensors of ``layouts`` (as they are for
+    None)."""
+    if layouts is None:
+        return state
+    from repro_torch.launch.sharding import replicated
+    params, opt = state
+    mesh = tree_leaves(layouts)[0].mesh
+    return (steps.place(params, layouts),
+            AdamWState(step=steps.place(opt.step, replicated(mesh)),
+                       mu=steps.place(opt.mu, layouts),
+                       nu=steps.place(opt.nu, layouts)))
+
+
+def _whole(tree):
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def _save(ckpt_dir, step: int, state, layouts) -> None:
+    if layouts is None:
+        save_checkpoint(ckpt_dir, step, state)
+        return
+    import torch.distributed as dist
+    whole = _whole(state)
+    if dist.get_rank() == 0:
+        save_checkpoint(ckpt_dir, step, whole)
+    dist.barrier()
+
+
+def _restore(ckpt_dir, step: int, like, layouts):
+    if layouts is None:
+        return restore_checkpoint(ckpt_dir, step, like)
+    return _place(restore_checkpoint(ckpt_dir, step, _whole(like)), layouts)
 
 
 def _extras(arch, dtype):

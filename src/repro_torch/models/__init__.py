@@ -11,6 +11,7 @@ from repro_torch.models.lm import (
     lm_loss,
     lm_prefill,
     load_reference_params,
+    model_axes,
     model_spec,
     n_params,
 )

@@ -49,18 +49,21 @@ class AttnConfig:
 def attn_spec(cfg: AttnConfig) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     spec = {
-        "wq": ParamSpec((d, hq, hd)),
-        "wk": ParamSpec((d, hkv, hd)),
-        "wv": ParamSpec((d, hkv, hd)),
-        "wo": ParamSpec((hq, hd, d)),
+        "wq": ParamSpec((d, hq, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((hq, hd, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        spec["bq"] = ParamSpec((hq, hd), init="zeros")
-        spec["bk"] = ParamSpec((hkv, hd), init="zeros")
-        spec["bv"] = ParamSpec((hkv, hd), init="zeros")
+        spec["bq"] = ParamSpec((hq, hd), ("heads", "head_dim"),
+                               init="zeros")
+        spec["bk"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"),
+                               init="zeros")
+        spec["bv"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"),
+                               init="zeros")
     if cfg.qk_norm:
-        spec["q_norm"] = ParamSpec((hd,), init="ones")
-        spec["k_norm"] = ParamSpec((hd,), init="ones")
+        spec["q_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
+        spec["k_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
     return spec
 
 

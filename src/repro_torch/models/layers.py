@@ -24,8 +24,16 @@ from repro_torch.core.tree import Layers, entries, rebuild
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis name per dim
     init: str = "normal"                  # normal | zeros | ones | embed
     scale: float | None = None            # stddev override for "normal"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
 
 
 class Params(nn.Module):
@@ -93,13 +101,26 @@ def _std(spec: ParamSpec) -> float:
     return 1.0 / math.sqrt(max(fan_in, 1))
 
 
+def abstract_params(spec_tree, dtype=torch.float32):
+    """The parameter tree as meta tensors: shapes and dtypes, no storage
+    (the dry run's stand-in for the reference's ShapeDtypeStructs)."""
+    return _map(spec_tree, lambda s: torch.empty(s.shape, dtype=dtype,
+                                                 device="meta"))
+
+
+def logical_axes(spec_tree):
+    """The tree of logical-axis tuples mirroring the parameter tree."""
+    return _map(spec_tree, lambda s: s.axes)
+
+
 def stacked_spec(like) -> ParamSpec:
     """The reference's spec of a leaf: a layer list's per-layer specs
     (a :class:`repro_torch.core.tree.Layers`) as one spec with the layer
     count as a leading axis; a spec as itself."""
     if isinstance(like, Layers):
         s = like[0]
-        return ParamSpec((len(like),) + s.shape, s.init, s.scale)
+        return ParamSpec((len(like),) + s.shape, ("layers",) + s.axes,
+                         s.init, s.scale)
     return like
 
 
@@ -146,7 +167,7 @@ def param_count(spec_tree) -> int:
 # ---------------------------------------------------------------------------
 
 def rmsnorm_spec(d: int):
-    return {"scale": ParamSpec((d,), init="ones")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
 
 
 def rmsnorm(p, x, eps: float = 1e-6):
@@ -158,8 +179,8 @@ def rmsnorm(p, x, eps: float = 1e-6):
 
 
 def layernorm_spec(d: int):
-    return {"scale": ParamSpec((d,), init="ones"),
-            "bias": ParamSpec((d,), init="zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
 
 
 def layernorm(p, x, eps: float = 1e-5):
@@ -177,11 +198,11 @@ def layernorm(p, x, eps: float = 1e-5):
 # dense / embedding
 # ---------------------------------------------------------------------------
 
-def dense_spec(d_in: int, d_out: int, bias: bool = False,
-               scale: float | None = None):
-    spec = {"w": ParamSpec((d_in, d_out), scale=scale)}
+def dense_spec(d_in: int, d_out: int, axes: tuple[str | None, str | None],
+               bias: bool = False, scale: float | None = None):
+    spec = {"w": ParamSpec((d_in, d_out), axes, scale=scale)}
     if bias:
-        spec["b"] = ParamSpec((d_out,), init="zeros")
+        spec["b"] = ParamSpec((d_out,), (axes[1],), init="zeros")
     return spec
 
 
@@ -193,7 +214,7 @@ def dense(p, x):
 
 
 def embedding_spec(vocab: int, d: int):
-    return {"table": ParamSpec((vocab, d), init="embed")}
+    return {"table": ParamSpec((vocab, d), ("vocab", "embed"), init="embed")}
 
 
 def embed(p, tokens):
@@ -210,8 +231,9 @@ def unembed(p, x):
 # ---------------------------------------------------------------------------
 
 def swiglu_spec(d: int, d_ff: int):
-    return {"gate": dense_spec(d, d_ff), "up": dense_spec(d, d_ff),
-            "down": dense_spec(d_ff, d)}
+    return {"gate": dense_spec(d, d_ff, ("embed", "mlp")),
+            "up": dense_spec(d, d_ff, ("embed", "mlp")),
+            "down": dense_spec(d_ff, d, ("mlp", "embed"))}
 
 
 def swiglu(p, x):
@@ -220,8 +242,8 @@ def swiglu(p, x):
 
 
 def gelu_mlp_spec(d: int, d_ff: int, bias: bool = True):
-    return {"up": dense_spec(d, d_ff, bias=bias),
-            "down": dense_spec(d_ff, d, bias=bias)}
+    return {"up": dense_spec(d, d_ff, ("embed", "mlp"), bias=bias),
+            "down": dense_spec(d_ff, d, ("mlp", "embed"), bias=bias)}
 
 
 def gelu_mlp(p, x):

@@ -70,6 +70,7 @@ from repro_torch.models.layers import (
     embed,
     embedding_spec,
     init_params,
+    logical_axes,
     param_count,
     unembed,
 )
@@ -218,28 +219,37 @@ def model_spec(arch: ArchConfig) -> dict:
     if arch.block_pattern == "zamba":
         spec["shared_attn"] = blk.attn_block_spec(arch)
         spec["shared_proj"] = dense_spec(arch.d_model, arch.d_model,
-                                         scale=0.02)
+                                         ("embed", "embed"), scale=0.02)
     if arch.enc_dec:
         spec["encoder"] = {
-            "pos": ParamSpec((arch.n_frames, arch.d_model), scale=0.02),
+            "pos": ParamSpec((arch.n_frames, arch.d_model),
+                             (None, "embed"), scale=0.02),
             "layers": [blk.attn_block_spec(arch)] * arch.n_enc_layers,
             "norm": blk._norm_spec(arch),
         }
     if arch.vision_tokens:
-        spec["img_proj"] = dense_spec(arch.d_frontend, arch.d_model)
+        spec["img_proj"] = dense_spec(arch.d_frontend, arch.d_model,
+                                      (None, "embed"))
     spec["final_norm"] = blk._norm_spec(arch)
     if not arch.tie_embeddings:
         spec["lm_head"] = ParamSpec((arch.d_model, arch.vocab_size),
-                                    scale=0.02)
+                                    ("embed", "vocab"), scale=0.02)
     if arch.mtp:
         spec["mtp"] = {
-            "proj": dense_spec(2 * arch.d_model, arch.d_model),
+            "proj": dense_spec(2 * arch.d_model, arch.d_model,
+                               (None, "embed")),
             "block": (blk.mla_block_spec(arch, d_ff=arch.moe_d_ff_dense
                                          or arch.d_ff)
                       if arch.use_mla else blk.attn_block_spec(arch)),
             "norm": blk._norm_spec(arch),
         }
     return spec
+
+
+def model_axes(arch: ArchConfig):
+    """The logical-axis tuple of every parameter, in
+    :func:`model_spec`'s tree (per-layer lists, no stacked axis)."""
+    return logical_axes(model_spec(arch))
 
 
 def init_model(arch: ArchConfig, source, dtype=torch.float32,
@@ -299,18 +309,21 @@ def load_reference_params(tree, device=None) -> Params:
 # encoder (whisper backbone; frame embeddings from the stub frontend)
 # ---------------------------------------------------------------------------
 
-def encode_frames(params, arch: ArchConfig, frames):
+def encode_frames(params, arch: ArchConfig, frames, constrain=None):
     """frames: (B, F, D) precomputed frame embeddings -> the encoder's
     output (B, F, D): learned positions, then bidirectional attention
     blocks (global: ``use_flash_attention`` routes them to the kernel),
-    then the encoder's norm."""
+    then the encoder's norm.  ``constrain``: see :func:`forward_hidden`."""
+    cons = constrain or _identity_constrain
     enc = params["encoder"]
-    x = frames + enc["pos"].to(frames.dtype)[None, :frames.shape[1]]
-    for pl in enc["layers"]:
-        def body(xc, pl=pl):
+    pos = cons(("encoder", "pos"), enc["pos"])
+    x = frames + pos.to(frames.dtype)[None, :frames.shape[1]]
+    for i, pl in enumerate(enc["layers"]):
+        def body(xc, pl=pl, i=i):
+            pl = cons(("encoder", "layers", i), pl)
             return blk.attn_block_train(pl, arch, xc, causal=False)[0]
         x = _grad_checkpoint(body, x) if arch.remat else body(x)
-    return blk._norm(arch, enc["norm"], x)
+    return blk._norm(arch, cons(("encoder", "norm"), enc["norm"]), x)
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +336,14 @@ def _grad_checkpoint(fn, *args):
     if torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def _cross_kv(arch: ArchConfig, seg: Segment, pl, enc_out):
+    """One layer's cross-attention k/v of ``enc_out`` (None without
+    cross-attention or encoder output)."""
+    if not seg.cross or enc_out is None:
+        return None
+    return cross_kv(pl["xattn"], blk.attn_cfg(arch, causal=False), enc_out)
 
 
 def _cross_kvs(params, arch: ArchConfig, seg: Segment, enc_out):
@@ -377,32 +398,51 @@ def _layer_decode(arch: ArchConfig, seg: Segment, pl, x, entry, pos,
     return _CELLS[seg.kind][2](pl, arch, x, entry, pos)
 
 
-def _shared(params, arch: ArchConfig, x, y):
+def _shared(params, arch: ArchConfig, x, y, cons=None):
     """zamba2's shared block output y folded in: x + proj(y - x)."""
-    return x + dense(params["shared_proj"], y - x)
+    proj = params["shared_proj"]
+    if cons is not None:
+        proj = cons(("shared_proj",), proj)
+    return x + dense(proj, y - x)
 
 
-def forward_hidden(params, arch: ArchConfig, x, enc_out=None):
+def _identity_constrain(path, sub):
+    return sub
+
+
+def forward_hidden(params, arch: ArchConfig, x, enc_out=None,
+                   constrain=None):
     """(B, S, D) -> (B, S, D) through all segments and the final norm,
     cross-attending to ``enc_out`` (B, F, D) in a cross segment.  Returns
     (h, aux); ``aux`` is the MoE layers' summed balance loss (0.0
-    without MoE)."""
+    without MoE).
+
+    ``constrain(path, subtree)`` re-shards parameters at their use site
+    (``launch.steps.make_constrainer``: storage sharded, gathered to the
+    compute layout one layer at a time inside the layer's checkpointed
+    body); ``path`` indexes :func:`model_spec`'s tree, a layer by its
+    list index.  None leaves every parameter as it is."""
+    cons = constrain or _identity_constrain
     aux_total = 0.0
     layer_idx = 0
     for seg in build_plan(arch):
         if seg.kind == "shared":
-            y, _ = blk.attn_block_train(params["shared_attn"], arch, x)
-            x = _shared(params, arch, x, y)
+            y, _ = blk.attn_block_train(
+                cons(("shared_attn",), params["shared_attn"]), arch, x)
+            x = _shared(params, arch, x, y, cons)
             continue
         wins = layer_windows(arch, layer_idx, seg.n)
-        for pl, w, ekv in zip(params["segments"][seg.name], wins,
-                              _cross_kvs(params, arch, seg, enc_out)):
-            def body(xc, pl=pl, w=w, ekv=ekv):
-                return _layer_train(arch, seg, pl, xc, w, ekv)
+        for i, (pl, w) in enumerate(zip(params["segments"][seg.name],
+                                        wins)):
+            def body(xc, pl=pl, w=w, i=i, seg=seg):
+                pl = cons(("segments", seg.name, i), pl)
+                return _layer_train(arch, seg, pl, xc, w,
+                                    _cross_kv(arch, seg, pl, enc_out))
             x, aux = _grad_checkpoint(body, x) if arch.remat else body(x)
             aux_total = aux_total + aux
         layer_idx += seg.n
-    return blk._norm(arch, params["final_norm"], x), aux_total
+    return blk._norm(arch, cons(("final_norm",), params["final_norm"]),
+                     x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -443,35 +483,42 @@ def chunked_ce(h, table, labels, chunk: int, transpose: bool):
 # training objective
 # ---------------------------------------------------------------------------
 
-def lm_loss(params, arch: ArchConfig, batch, dtype=torch.bfloat16):
+def lm_loss(params, arch: ArchConfig, batch, dtype=torch.bfloat16,
+            constrain=None):
     """batch: tokens (B, S), labels (B, S) integer tensors (-1 = ignore),
     plus ``frames`` / ``images`` for the frontend stubs (the image
     prefix takes label -1).  Activations in ``dtype``; the readout in
     float32 (float64 when ``dtype`` is float64).  Returns a 0-d tensor:
     the cross-entropy, plus ``mtp_weight`` times the MTP head's loss
-    (``arch.mtp``), plus the MoE balance loss."""
-    x, prefix = _embed_inputs(params, arch, batch, dtype)
+    (``arch.mtp``), plus the MoE balance loss.  ``constrain``: see
+    :func:`forward_hidden`."""
+    cons = constrain or _identity_constrain
+    x, prefix = _embed_inputs(params, arch, batch, dtype, cons)
     enc_out = None
     if arch.enc_dec:
-        enc_out = encode_frames(params, arch, batch["frames"].to(dtype))
-    h, aux = forward_hidden(params, arch, x, enc_out)
+        enc_out = encode_frames(params, arch, batch["frames"].to(dtype),
+                                cons)
+    h, aux = forward_hidden(params, arch, x, enc_out, cons)
     labels = batch["labels"]
     if prefix:
         labels = F.pad(labels, (prefix, 0), value=-1)
     tie = arch.tie_embeddings or "lm_head" not in params
-    table = params["embed"]["table"] if tie else params["lm_head"]
+    table = (cons(("embed",), params["embed"])["table"] if tie
+             else cons(("lm_head",), params["lm_head"]))
     loss = chunked_ce(h, table, labels, arch.loss_chunk, transpose=tie)
     if arch.mtp:
         loss = loss + arch.mtp_weight * _mtp_loss(
-            params, arch, h[:, prefix:], batch, dtype, table, tie)
+            params, arch, h[:, prefix:], batch, dtype, table, tie, cons)
     return loss + aux
 
 
-def _mtp_loss(params, arch: ArchConfig, h, batch, dtype, table, tie):
+def _mtp_loss(params, arch: ArchConfig, h, batch, dtype, table, tie,
+              cons=_identity_constrain):
     """DeepSeek-V3-style depth-1 multi-token prediction: one extra block
     predicts label t+1 (token t+2) from (h_t, emb(token_{t+1}))."""
-    mtp = params["mtp"]
-    emb_next = embed(params["embed"], batch["tokens"][:, 1:]).to(dtype)
+    mtp = cons(("mtp",), params["mtp"])
+    emb_next = embed(cons(("embed",), params["embed"]),
+                     batch["tokens"][:, 1:]).to(dtype)
     x = dense(mtp["proj"], torch.cat([h[:, :-1].to(dtype), emb_next],
                                      dim=-1))
     if arch.use_mla:
@@ -495,14 +542,17 @@ def _embed_tokens(params, arch: ArchConfig, tokens, dtype):
     return x
 
 
-def _embed_inputs(params, arch: ArchConfig, batch, dtype):
+def _embed_inputs(params, arch: ArchConfig, batch, dtype,
+                  cons=_identity_constrain):
     """(x, prefix): token embeddings in ``dtype``, after the projected
     image tokens when ``arch.vision_tokens`` (then ``prefix`` is their
     number, else 0)."""
-    x = _embed_tokens(params, arch, batch["tokens"], dtype)
+    x = _embed_tokens({"embed": cons(("embed",), params["embed"])}, arch,
+                      batch["tokens"], dtype)
     prefix = 0
     if arch.vision_tokens:
-        img = dense(params["img_proj"], batch["images"].to(dtype))
+        img = dense(cons(("img_proj",), params["img_proj"]),
+                    batch["images"].to(dtype))
         x = torch.cat([img, x], dim=1)
         prefix = img.shape[1]
     return x, prefix

@@ -48,14 +48,15 @@ def mamba2_spec(cfg: Mamba2Config) -> dict:
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_heads
     proj_out = 2 * di + 2 * n + h          # z, x, B, C, dt
     return {
-        "in_proj": ParamSpec((d, proj_out)),
-        "conv_w": ParamSpec((cfg.d_conv, cfg.conv_dim), scale=0.5),
-        "conv_b": ParamSpec((cfg.conv_dim,), init="zeros"),
-        "a_log": ParamSpec((h,), init="zeros"),
-        "d_skip": ParamSpec((h,), init="ones"),
-        "dt_bias": ParamSpec((h,), init="zeros"),
-        "norm": ParamSpec((di,), init="ones"),
-        "out_proj": ParamSpec((di, d)),
+        "in_proj": ParamSpec((d, proj_out), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.d_conv, cfg.conv_dim), (None, "mlp"),
+                            scale=0.5),
+        "conv_b": ParamSpec((cfg.conv_dim,), ("mlp",), init="zeros"),
+        "a_log": ParamSpec((h,), (None,), init="zeros"),
+        "d_skip": ParamSpec((h,), (None,), init="ones"),
+        "dt_bias": ParamSpec((h,), (None,), init="zeros"),
+        "norm": ParamSpec((di,), ("mlp",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("mlp", "embed")),
     }
 
 

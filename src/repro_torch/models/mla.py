@@ -47,16 +47,21 @@ def mla_spec(cfg: MLAConfig) -> dict:
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     spec: dict = {}
     if cfg.q_lora_rank:
-        spec["w_dq"] = ParamSpec((d, cfg.q_lora_rank))
+        spec["w_dq"] = ParamSpec((d, cfg.q_lora_rank), ("embed", "q_lora"))
         spec["q_norm"] = rmsnorm_spec(cfg.q_lora_rank)
-        spec["w_uq"] = ParamSpec((cfg.q_lora_rank, h, dn + dr))
+        spec["w_uq"] = ParamSpec((cfg.q_lora_rank, h, dn + dr),
+                                  ("q_lora", "heads", "head_dim"))
     else:
-        spec["w_q"] = ParamSpec((d, h, dn + dr))
-    spec["w_dkv"] = ParamSpec((d, cfg.kv_lora_rank + dr))
+        spec["w_q"] = ParamSpec((d, h, dn + dr),
+                                 ("embed", "heads", "head_dim"))
+    spec["w_dkv"] = ParamSpec((d, cfg.kv_lora_rank + dr),
+                              ("embed", "kv_lora"))
     spec["kv_norm"] = rmsnorm_spec(cfg.kv_lora_rank)
-    spec["w_uk"] = ParamSpec((cfg.kv_lora_rank, h, dn))
-    spec["w_uv"] = ParamSpec((cfg.kv_lora_rank, h, dv))
-    spec["w_o"] = ParamSpec((h, dv, d))
+    spec["w_uk"] = ParamSpec((cfg.kv_lora_rank, h, dn),
+                             ("kv_lora", "heads", "head_dim"))
+    spec["w_uv"] = ParamSpec((cfg.kv_lora_rank, h, dv),
+                             ("kv_lora", "heads", "head_dim"))
+    spec["w_o"] = ParamSpec((h, dv, d), ("heads", "head_dim", "embed"))
     return spec
 
 

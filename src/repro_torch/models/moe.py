@@ -22,19 +22,100 @@ contributions added in expert order, so no step is a scatter and every
 run on every device gives the same sums.  DeepSeek-style shared experts
 are a plain dense SwiGLU alongside.
 
-The port has one token group: the reference groups tokens by its
-expert-parallel mesh axes (``CURRENT_MESH``, ``_ep_axes``, ``_pin``) and
-has one group without a mesh; those pieces come with the port's meshes
-(ROADMAP queue 1 #7).
+Without a mesh (``CURRENT_MESH`` unset, as everywhere but the launch
+layer's steps) the B*S tokens are one group.  Under a mesh whose
+expert-parallel axes (``_ep_axes``: pod, data, as far as they divide E)
+are the batch axes, with the expert weights DTensors sharded over them
+(``launch/sharding.py``'s "experts" rule), each rank's tokens (its batch
+shard) are one of G groups, GShard-style: routed alone with its own
+capacity, the (E, C, D) buffer redistributed from group-major to
+expert-major (the all-to-all), the experts applied to their local slots
+(their FFN dim split over "model", the partial sums reduced), and back;
+both redistributes go through :func:`_a2a`, where the dry run counts them
+(a CPU mesh's DTensor spells an all-to-all as an all-gather and a chunk).
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.layers import ParamSpec, swiglu, swiglu_spec
+
+# The mesh of the expert-parallel layout, set by the launch layer around a
+# step (``launch.steps.mesh_scoped``); None: one token group.
+CURRENT_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_mesh", default=None)
+
+
+def _mesh_shape(mesh) -> dict:
+    """``{axis: size}`` of a DeviceMesh (or of such a mapping)."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))
+
+
+def _ep_axes(n_experts: int, mesh=None):
+    """Mesh axes carrying expert parallelism (present + divisible)."""
+    mesh = CURRENT_MESH.get() if mesh is None else mesh
+    if mesh is None:
+        return None
+    shape = _mesh_shape(mesh)
+    prod, keep = 1, []
+    for a in (a for a in ("pod", "data") if a in shape):
+        if n_experts % (prod * shape[a]) == 0:
+            keep.append(a)
+            prod *= shape[a]
+    return tuple(keep) or None
+
+
+def _group_count(n_experts: int, tokens: int, mesh=None) -> int:
+    """The reference's G: the EP axes' product when it divides the
+    tokens, else 1."""
+    mesh = CURRENT_MESH.get() if mesh is None else mesh
+    ep = _ep_axes(n_experts, mesh)
+    if mesh is None or not ep:
+        return 1
+    shape = _mesh_shape(mesh)
+    g = 1
+    for a in ep:
+        g *= shape[a]
+    return g if tokens % g == 0 else 1
+
+
+def ep_active(n_experts: int, mesh=None) -> bool:
+    """Expert parallelism is on: the EP axes are the mesh's batch axes
+    and split the experts more than one way (so a rank's batch shard is
+    one token group)."""
+    mesh = CURRENT_MESH.get() if mesh is None else mesh
+    if mesh is None:
+        return False
+    ep = _ep_axes(n_experts, mesh)
+    shape = _mesh_shape(mesh)
+    batch = tuple(a for a in ("pod", "data") if a in shape)
+    return bool(ep) and ep == batch and math.prod(
+        shape[a] for a in ep) > 1
+
+
+def _placements(mesh, shard: dict) -> list:
+    """Placements from ``{axis: tensor dim or "partial"}`` (others
+    replicated)."""
+    out = []
+    for a in mesh.mesh_dim_names:
+        v = shard.get(a)
+        out.append(Partial() if v == "partial" else
+                   Replicate() if v is None else Shard(v))
+    return out
+
+
+def _pin(x: DTensor, shard: dict) -> DTensor:
+    """``x`` redistributed under the current mesh to ``{axis: dim}``."""
+    mesh = x.device_mesh
+    return x.redistribute(mesh, _placements(mesh, shard))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +132,10 @@ class MoEConfig:
 def moe_spec(cfg: MoEConfig) -> dict:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     spec = {
-        "router": ParamSpec((d, e), scale=0.02),
-        "gate": ParamSpec((e, d, f)),
-        "up": ParamSpec((e, d, f)),
-        "down": ParamSpec((e, f, d)),
+        "router": ParamSpec((d, e), ("embed", None), scale=0.02),
+        "gate": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp")),
+        "up": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp")),
+        "down": ParamSpec((e, f, d), ("experts", "expert_mlp", "embed")),
     }
     if cfg.n_shared:
         spec["shared"] = swiglu_spec(d, cfg.n_shared * f)
@@ -119,9 +200,68 @@ def _combine_group(out, meta, tg: int, dtype):
     return y
 
 
+def _ep_mean(v: torch.Tensor, mesh, ep) -> torch.Tensor:
+    """The mean of a per-group tensor over the G groups."""
+    g = math.prod(_mesh_shape(mesh)[a] for a in ep)
+    d = DTensor.from_local(v / g, mesh,
+                           _placements(mesh, {a: "partial" for a in ep}),
+                           run_check=False)
+    return d.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def _a2a(x: DTensor, shard: dict, what: str) -> DTensor:
+    """The group-major <-> expert-major redistribute (an all-to-all);
+    ``what`` names it ("dispatch" or "return") for the dry run."""
+    return _pin(x, shard)
+
+
+def _moe_ep(p, cfg: MoEConfig, x, mesh):
+    """The expert-parallel forward: this rank's (B, S, D) tokens are one
+    group; the expert weights are DTensors (E over the EP axes, the FFN
+    dim over "model" when it divides)."""
+    b, s_len, d = x.shape
+    t = b * s_len
+    e = cfg.n_experts
+    ep = _ep_axes(e, mesh)
+    capacity = capacity_of(cfg, t)
+    xt = x.reshape(t, d)
+    buf, meta, fe, pe = _route_group(p, cfg, xt, capacity)
+    aux = cfg.aux_loss_weight * e * torch.sum(
+        _ep_mean(fe, mesh, ep) * _ep_mean(pe, mesh, ep))
+
+    tp = any(isinstance(pl, Shard) and pl.dim == 2 and a == "model"
+             for a, pl in zip(mesh.mesh_dim_names, p["gate"].placements))
+    group_major = DTensor.from_local(buf[None], mesh,
+                                     _placements(mesh, {a: 0 for a in ep}),
+                                     run_check=False)          # (G,E,C,D)
+    expert_major = _a2a(group_major, {a: 1 for a in ep}, "dispatch")
+    # a rank's slots, their FFN dim split over "model": partial sums
+    partial = _placements(mesh, {**{a: 1 for a in ep},
+                                 **({"model": "partial"} if tp else {})})
+    be = expert_major.to_local(grad_placements=partial)   # (G, E/G, C, D)
+    wg, wu, wd = (p[k].to_local() for k in ("gate", "up", "down"))
+    gt = torch.einsum("gecd,edf->gecf", be, wg.to(x.dtype))
+    u = torch.einsum("gecd,edf->gecf", be, wu.to(x.dtype))
+    out = torch.einsum("gecf,efd->gecd", F.silu(gt) * u, wd.to(x.dtype))
+    out = DTensor.from_local(out, mesh, partial, run_check=False)
+    if tp:
+        out = _pin(out, {a: 1 for a in ep})        # the model-axis sums
+    back = _a2a(out, {a: 0 for a in ep}, "return").to_local()[0]
+    y = _combine_group(back, meta, t, x.dtype)
+    if cfg.n_shared:
+        y = y + swiglu(p["shared"], xt)
+    return y.reshape(b, s_len, d), aux
+
+
 def moe_forward(p, cfg: MoEConfig, x):
-    """x: (B, S, D) -> (y (B, S, D), aux_loss), the B*S tokens routed as
-    one group."""
+    """x: (B, S, D) -> (y (B, S, D), aux_loss).  The B*S tokens are
+    routed as one group, or, under an expert-parallel mesh with expert
+    weights sharded over it (:func:`ep_active`), as this rank's group of
+    G (:func:`_moe_ep`)."""
+    mesh = CURRENT_MESH.get()
+    if (mesh is not None and isinstance(p["gate"], DTensor)
+            and ep_active(cfg.n_experts, mesh)):
+        return _moe_ep(p, cfg, x, mesh)
     b, s_len, d = x.shape
     t = b * s_len
     e = cfg.n_experts

@@ -67,19 +67,19 @@ class SLSTMConfig:
 def mlstm_spec(cfg: MLSTMConfig) -> dict:
     d, di, h, hd = cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.head_dim
     return {
-        "up": ParamSpec((d, di)),
-        "up_gate": ParamSpec((d, di)),
-        "conv_w": ParamSpec((cfg.d_conv, di), scale=0.5),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "wq": ParamSpec((di, h, hd)),
-        "wk": ParamSpec((di, h, hd)),
-        "wv": ParamSpec((di, h, hd)),
-        "w_i": ParamSpec((di, h), scale=0.01),
-        "b_i": ParamSpec((h,), init="zeros"),
-        "w_f": ParamSpec((di, h), scale=0.01),
-        "b_f": ParamSpec((h,), init="ones"),
-        "out_norm": ParamSpec((di,), init="ones"),
-        "down": ParamSpec((di, d)),
+        "up": ParamSpec((d, di), ("embed", "mlp")),
+        "up_gate": ParamSpec((d, di), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.d_conv, di), (None, "mlp"), scale=0.5),
+        "conv_b": ParamSpec((di,), ("mlp",), init="zeros"),
+        "wq": ParamSpec((di, h, hd), ("mlp", "heads", "head_dim")),
+        "wk": ParamSpec((di, h, hd), ("mlp", "heads", "head_dim")),
+        "wv": ParamSpec((di, h, hd), ("mlp", "heads", "head_dim")),
+        "w_i": ParamSpec((di, h), ("mlp", "heads"), scale=0.01),
+        "b_i": ParamSpec((h,), ("heads",), init="zeros"),
+        "w_f": ParamSpec((di, h), ("mlp", "heads"), scale=0.01),
+        "b_f": ParamSpec((h,), ("heads",), init="ones"),
+        "out_norm": ParamSpec((di,), ("mlp",), init="ones"),
+        "down": ParamSpec((di, d), ("mlp", "embed")),
     }
 
 
@@ -291,20 +291,21 @@ def slstm_spec(cfg: SLSTMConfig) -> dict:
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
 
     def wx():
-        return ParamSpec((d, h, hd))
+        return ParamSpec((d, h, hd), ("embed", "heads", "head_dim"))
 
     def rh():
-        return ParamSpec((h, hd, hd), scale=0.3)
+        return ParamSpec((h, hd, hd), ("heads", "head_dim", None),
+                         scale=0.3)
 
     def bias(init="zeros"):
-        return ParamSpec((h, hd), init=init)
+        return ParamSpec((h, hd), ("heads", "head_dim"), init=init)
 
     return {
         "wi": wx(), "wf": wx(), "wz": wx(), "wo": wx(),
         "ri": rh(), "rf": rh(), "rz": rh(), "ro": rh(),
         "bi": bias(), "bf": bias("ones"), "bz": bias(), "bo": bias(),
-        "out_norm": ParamSpec((d,), init="ones"),
-        "out_proj": ParamSpec((d, d)),
+        "out_norm": ParamSpec((d,), ("embed",), init="ones"),
+        "out_proj": ParamSpec((d, d), ("embed", "embed")),
     }
 
 

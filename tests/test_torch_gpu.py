@@ -897,3 +897,209 @@ def test_trainer_on_card_follows_cpu(cuda, tmp_path):
         a = a.stacked() if hasattr(a, "stacked") else a
         b = b.stacked() if hasattr(b, "stacked") else b
         assert a.device.type == "cuda" and torch.equal(a, b), k
+
+
+# ---------------------------------------------------------------------------
+# the launch layer on the card (chip_smoke.py phase 12 at small sizes)
+# ---------------------------------------------------------------------------
+
+def _run_py(args, timeout=600):
+    import json
+    import os
+    import subprocess
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable] + args, capture_output=True,
+                         text=True, cwd=root, timeout=timeout,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert out.returncode == 0, out.stderr[-3000:]
+    return [json.loads(ln) for ln in out.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+_FLEET_ON_CARD = """
+import json, os
+from repro_torch.launch.launcher import maybe_initialize_from_env
+maybe_initialize_from_env()
+from repro_torch.core.distributed import fleet
+from repro_torch.core.solver import Distributed, solve
+from repro_torch.kernels.popstep import ops
+ops.launches = 0
+r = solve("rastrigin", Distributed(), seed=0, max_iters=32)
+fl = fleet()
+os.write(1, (json.dumps({"rank": fl[0] if fl else 0,
+    "history": [float(v) for v in r.extras["history"]],
+    "launches": ops.launches}) + "\\n").encode())
+"""
+
+
+def test_fleet_on_card_equals_one_process(cuda):
+    """12a at rastrigin n=2: a fleet of 2 processes x 4 shards, each
+    stepping its shards through popstep on the one card and gathering the
+    (value, id) pairs over gloo, takes one 8-shard process's history."""
+    launcher = ["-m", "repro_torch.launch.launcher"]
+    single = _run_py(launcher + ["--devices", "8", "--", sys.executable,
+                                 "-c", _FLEET_ON_CARD])
+    two = _run_py(launcher + ["--processes", "2", "--devices", "4", "--",
+                              sys.executable, "-c", _FLEET_ON_CARD])
+    assert len(two) == 2
+    for row in two:
+        assert row["history"] == single[0]["history"]
+        assert row["launches"] >= len(row["history"]) - 1
+
+
+_STEPS_ON_CARD = """
+import dataclasses, json
+import numpy as np, torch
+from repro_torch.configs import get_arch, reduced
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.kernels.flash_attention import ops as flash
+from repro_torch.launch.mesh import ensure_process_group, make_host_mesh
+from repro_torch.launch.steps import build_cell, place
+from repro_torch.models import init_model, lm_loss
+from repro_torch.optim.gradient import adamw_init
+dev = torch.device("cuda")
+ensure_process_group(dev)
+mesh = make_host_mesh(model=1)
+arch = dataclasses.replace(reduced(get_arch("qwen2-1.5b")),
+                           use_flash_attention=True)
+params = init_model(arch, torch.Generator(device=dev).manual_seed(0),
+                    torch.float32).tree()
+cell = build_cell(arch, ShapeSpec("t", 64, 4, "train"), mesh,
+                  dtype=torch.float32)
+toks = torch.randint(0, arch.vocab_size, (1, 4, 64), device=dev,
+                     dtype=torch.int32)
+batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+with torch.no_grad():
+    want = float(lm_loss(params, arch, {"tokens": toks[0].long(),
+                 "labels": batch["labels"][0].long()}, dtype=torch.float32))
+_, _, loss = cell.step(place(params, cell.in_shardings[0]),
+                       place(adamw_init(params), cell.in_shardings[1]),
+                       place(batch, cell.in_shardings[2]))
+pre = build_cell(arch, ShapeSpec("p", 256, 2, "prefill"), mesh,
+                 dtype=torch.float32)
+flash.launches = 0
+logits, _ = pre.step(place(params, pre.in_shardings[0]),
+                     place({"tokens": toks[0, :2].repeat(1, 4)},
+                           pre.in_shardings[1]))
+print(json.dumps({"loss": float(loss), "want": want,
+                  "flash": flash.launches, "layers": arch.n_layers,
+                  "finite": bool(logits.to_local().isfinite().all())}))
+"""
+
+
+def test_build_cell_steps_on_a_one_rank_nccl_mesh(cuda):
+    """12b at reduced() width: the train step's loss is lm_loss's, and
+    the prefill step routes every layer through the flash kernel."""
+    got = _run_py(["-c", _STEPS_ON_CARD])[-1]
+    assert abs(got["loss"] - got["want"]) <= 1e-6 * abs(got["want"])
+    assert got["flash"] == got["layers"] and got["finite"]
+
+
+_MESH_DEFAULT = """
+import json, torch
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_host_mesh, replicate_to_mesh
+mesh = make_host_mesh()
+x = replicate_to_mesh(torch.arange(4.0), mesh)
+print(json.dumps({"type": mesh.device_type, "shape": list(mesh.mesh.shape),
+                  "backend": str(dist.get_backend()),
+                  "on": x.to_local().device.type,
+                  "sum": float(x.full_tensor().sum())}))
+"""
+
+
+def test_host_mesh_defaults_to_the_card(cuda):
+    """``make_host_mesh()`` with no arguments: a (1, 1) mesh on the card
+    over NCCL, its DTensors on the card."""
+    got = _run_py(["-c", _MESH_DEFAULT])[-1]
+    assert got["type"] == "cuda" and got["shape"] == [1, 1]
+    assert "nccl" in got["backend"] and got["on"] == "cuda"
+    assert got["sum"] == 6.0
+
+
+_SHARDS_ON_CARD = """
+import json, sys
+import torch.distributed as dist
+from repro_torch.launch import train
+args = train.build_argparser().parse_args(ARGV)
+try:
+    out = train.run_training(args)
+    row = {"losses": out["losses"]}
+except ValueError as e:
+    row = {"error": str(e)}
+if dist.is_initialized():
+    row.update(rank=dist.get_rank(), backend=str(dist.get_backend()))
+print(json.dumps(row))
+"""
+
+
+def _shards_argv(tmp_path, k):
+    return ["--arch", "qwen2-1.5b", "--reduced", "--steps", "3",
+            "--global-batch", "4", "--seq-len", "32", "--ckpt-every", "3",
+            "--ckpt-dir", str(tmp_path / f"k{k}"), "--model-shards", str(k)]
+
+
+def test_model_shards_on_one_shared_card_raise(cuda, tmp_path):
+    """A fleet of 2 on one GPU is a gloo group: ``--model-shards 2`` on
+    the card raises the ValueError that names it."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("every rank has a GPU of its own here")
+    code = _SHARDS_ON_CARD.replace("ARGV", repr(_shards_argv(tmp_path, 2)))
+    rows = _run_py(["-m", "repro_torch.launch.launcher", "--processes", "2",
+                    "--", sys.executable, "-c", code])
+    assert len(rows) == 2
+    assert all("gloo" in r.get("error", "") for r in rows)
+
+
+def test_model_shards_train_on_the_cards(cuda, tmp_path):
+    """A fleet of 2 with a GPU each joins NCCL and trains ``--model-shards
+    2`` on the cards, with the losses of one process on one card (the
+    train bars)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: one a rank")
+    one = _run_py(["-c", _SHARDS_ON_CARD.replace("ARGV", repr(
+        _shards_argv(tmp_path, 1)))])[-1]
+    code = _SHARDS_ON_CARD.replace("ARGV", repr(_shards_argv(tmp_path, 2)))
+    rows = _run_py(["-m", "repro_torch.launch.launcher", "--processes", "2",
+                    "--", sys.executable, "-c", code])
+    assert len(rows) == 2
+    want = np.asarray(one["losses"])
+    for r in rows:
+        assert "nccl" in r["backend"]
+        got = np.asarray(r["losses"])
+        assert np.isclose(got[0], want[0], rtol=1e-6, atol=0)
+        np.testing.assert_allclose(got[1:], want[1:], rtol=1e-3, atol=0)
+
+
+def test_dgo_train_step_on_card_follows_cpu(cuda):
+    """12c at the reference test's size: the regression model's 10 steps
+    on the card take the CPU's bits, values within 1e-5."""
+    from repro_torch.core import prng
+    from repro_torch.core.encoding import Encoding, decode, encode
+    from repro_torch.core.subspace import apply_subspace, make_dgo_train_step
+
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32))
+    ys = xs @ torch.from_numpy(rng.standard_normal((8, 1)).astype(
+        np.float32))
+    enc = Encoding(n_vars=8, bits=6, lo=-2.0, hi=2.0)
+    key = prng.PRNGKey(7)
+
+    def loss(p, b):
+        return torch.mean((b[0] @ p["w"] - b[1]) ** 2)
+
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        w0 = {"w": torch.zeros((8, 1), device=dev)}
+        data = (xs.to(dev), ys.to(dev))
+        step = make_dgo_train_step(loss, enc, None, alpha=4.0)
+        bits = encode(torch.zeros(8, device=dev), enc)
+        val = loss(apply_subspace(w0, decode(bits, enc), key, 4.0), data)
+        hist = []
+        for _ in range(10):
+            bits, val, _ = step(w0, data, bits, val, key)
+            hist.append((bits.cpu().tolist(), float(val)))
+        runs.append(hist)
+    for (cb, cv), (gb, gv) in zip(*runs):
+        assert cb == gb
+        assert abs(cv - gv) <= 1e-5 * max(abs(cv), 1e-30)

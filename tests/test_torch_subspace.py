@@ -322,3 +322,42 @@ def test_serve_dgo_tunes_and_persists_winners(tmp_path):
     port = tobj.get(NAME)
     assert port.encoding.n_vars == 24
     assert all(np.isfinite(v).all() for v in restored.values())
+
+
+def test_dgo_train_step_chunks_and_its_own_evaluation(monkeypatch):
+    """``make_dgo_train_step`` evaluates its children in chunks of one
+    size, the last padded, never larger than the rank's count of
+    children; ``step.evaluate`` gives the step's own value of a child."""
+    from repro_torch.core.subspace import make_dgo_train_step
+
+    sizes, real = [], torch.func.vmap
+
+    def vmap(fn, in_dims=0):
+        inner = real(fn, in_dims=in_dims)
+
+        def run(tree, batch):
+            sizes.append(tree["w"].shape[0])
+            return inner(tree, batch)
+        return run
+
+    monkeypatch.setattr(torch.func, "vmap", vmap)
+    enc = Encoding(n_vars=2, bits=4, lo=-1.0, hi=1.0)      # 15 children
+    w0 = {"w": torch.zeros(3)}
+    data = torch.tensor([0.3, -0.2, 0.1])
+    key = prng.PRNGKey(0)
+    bits = encode(torch.zeros(2), enc)
+    inf = torch.tensor(float("inf"))
+
+    def loss(p, b):
+        return ((p["w"] - b) ** 2).sum()
+
+    step = make_dgo_train_step(loss, enc, None, chunk_bytes=4 * 3 * 4)
+    new_bits, new_val, improved = step(w0, data, bits, inf, key)
+    assert sizes == [4, 4, 4, 4] and bool(improved)
+    sizes.clear()
+    assert step.evaluate(w0, data, new_bits[None], key)[0] == new_val
+    assert sizes == [4]
+    sizes.clear()
+    few = make_dgo_train_step(loss, enc, None, children_per_step=3)
+    few(w0, data, bits, inf, key)
+    assert sizes == [3]

@@ -427,11 +427,46 @@ def test_failure_injection_and_training_restart(tmp_path):
 
 
 def test_model_shards_raise(tmp_path):
+    """One process cannot hold a (data, model=2) mesh: the error names
+    the fleet it needs."""
     args = ttrain.build_argparser().parse_args(
         TRAIN + ["--steps", "1", "--model-shards", "2", "--ckpt-dir",
                  str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="queue 1 #7"):
+    with pytest.raises(ValueError, match="--processes 2"):
         ttrain.run_training(args, device="cpu")
+
+
+_SHARDED = """
+import json, sys
+from repro_torch.launch import train
+import torch.distributed as dist
+args = train.build_argparser().parse_args(ARGV)
+out = train.run_training(args, device="cpu")
+emit({"rank": dist.get_rank(), "losses": out["losses"],
+      "steps": out["steps"]})
+"""
+
+
+def test_model_shards_fleet_matches_one_shard(tmp_path):
+    """A 2-rank gloo fleet trains ``--model-shards 2`` on a (1, 2) mesh
+    (parameters and moments sharded over "model", checkpointed whole by
+    rank 0 at step 2) with the losses of one process training
+    ``--model-shards 1``, within the train bars."""
+    from torch_fleet import by_rank, fleet
+    argv = TRAIN + ["--steps", "4", "--ckpt-every", "2", "--seed", "1"]
+    one = ttrain.run_training(ttrain.build_argparser().parse_args(
+        argv + ["--ckpt-dir", str(tmp_path / "one")]), device="cpu")
+    code = _SHARDED.replace("ARGV", repr(
+        argv + ["--model-shards", "2", "--ckpt-dir", str(tmp_path / "two")]))
+    two = by_rank(fleet(code, processes=2, timeout=300, threads=2))
+    assert set(two) == {0, 1}
+    want = np.asarray(one["losses"])
+    for rank in (0, 1):
+        got = np.asarray(two[rank]["losses"])
+        assert two[rank]["steps"] == 4 and got.shape == want.shape
+        assert np.isclose(got[0], want[0], rtol=1e-6, atol=0)
+        np.testing.assert_allclose(got[1:], want[1:], rtol=1e-3, atol=0)
+    assert (tmp_path / "two" / "step_00000004").exists()
 
 
 def test_train_main_prints_the_summary(tmp_path, capsys, monkeypatch):
