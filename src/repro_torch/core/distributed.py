@@ -87,6 +87,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import spans
 from repro_torch.core.cache import get_cache
 from repro_torch.core.encoding import Encoding, _f32, decode, decode_np, encode
 from repro_torch.core.population import (
@@ -383,32 +384,38 @@ def _build_shard_step(objective, enc: Encoding, plan: _ShardPlan,
                else None)
         fn = bindings.get(key)
         if fn is None:
-            ids_c, valid = _shard_rows(enc, plan, alive, phase, bounded,
-                                       device)
-            if fl is not None:         # this process's shards
-                ids_c = ids_c[rank * local * rows:(rank + 1) * local * rows]
-                valid = valid[rank * local * rows:(rank + 1) * local * rows]
-            if inner == "popstep":     # one kernel launch per step
-                fn = popstep_ops.prepare_step_ids(
-                    objective, ids_c, enc, valid=valid,
-                    virtual_block=plan.block, n_shards=local,
-                    restarts=restarts)
-            elif restarts is None:
-                def fn(parent_bits, ids_c=ids_c, valid=valid):
-                    return plain_best(parent_bits, ids_c, valid)
-            else:
-                def fn(parents, live, ids_c=ids_c, valid=valid):
-                    # each parent alone; a parent that is not live is
-                    # skipped where the flag can be read without a sync
-                    flags = (live.tolist() if live.device.type == "cpu"
-                             else [True] * parents.shape[0])
-                    return popstep_ops.each_parent(
-                        lambda p: plain_best(p, ids_c, valid), parents,
-                        flags, pop)
-            if fl is not None:
-                def fn(*args, local_fn=fn):
-                    return _fleet_fold(*local_fn(*args), pop)
-            bindings[key] = fn
+            with spans.span("popstep.bind"):
+                fn = bindings[key] = bind(alive, phase)
+        return fn
+
+    def bind(alive: tuple, phase: int):
+        """The rows of a quorum and phase, and their (value, id)
+        function (for the kernel, ``prepare_step_ids``)."""
+        ids_c, valid = _shard_rows(enc, plan, alive, phase, bounded,
+                                   device)
+        if fl is not None:         # this process's shards
+            ids_c = ids_c[rank * local * rows:(rank + 1) * local * rows]
+            valid = valid[rank * local * rows:(rank + 1) * local * rows]
+        if inner == "popstep":     # one kernel launch per step
+            fn = popstep_ops.prepare_step_ids(
+                objective, ids_c, enc, valid=valid,
+                virtual_block=plan.block, n_shards=local,
+                restarts=restarts)
+        elif restarts is None:
+            def fn(parent_bits, ids_c=ids_c, valid=valid):
+                return plain_best(parent_bits, ids_c, valid)
+        else:
+            def fn(parents, live, ids_c=ids_c, valid=valid):
+                # each parent alone; a parent that is not live is
+                # skipped where the flag can be read without a sync
+                flags = (live.tolist() if live.device.type == "cpu"
+                         else [True] * parents.shape[0])
+                return popstep_ops.each_parent(
+                    lambda p: plain_best(p, ids_c, valid), parents,
+                    flags, pop)
+        if fl is not None:
+            def fn(*args, local_fn=fn):
+                return _fleet_fold(*local_fn(*args), pop)
         return fn
 
     def select(parent_bits, parent_val, local_val, local_id):
@@ -883,7 +890,8 @@ def make_distributed_engine_batched(objective, enc: Encoding,
         stalls = torch.zeros(n_restarts, dtype=torch.int32, device=device)
         iters = torch.zeros(n_restarts, dtype=torch.int32, device=device)
         trace = vals[:, None].repeat(1, max_iters + 1)
-        for k in range(max_iters if _any_steps(active, slot_iters) else 0):
+        n_steps = max_iters if _any_steps(active, slot_iters) else 0
+        for k in range(n_steps):
             live = _batched_live(act, stalls, limit, iters, caps)
             nb, nv, improved = step(bits, vals, k, live)
             bits = torch.where(live[:, None], nb, bits)
@@ -892,9 +900,14 @@ def make_distributed_engine_batched(objective, enc: Encoding,
             trace[:, k + 1] = torch.where(live, vals, trace[:, k])
             stalls = torch.where(live & improved, 0,
                                  stalls + live.to(torch.int32))
-            if ((k + 1) % STALL_CHECK_EVERY == 0 and not bool(
-                    _batched_live(act, stalls, limit, iters, caps).any())):
-                break
+            if (k + 1) % STALL_CHECK_EVERY == 0:
+                with spans.span("engine.stall_read"):
+                    none_live = not bool(_batched_live(
+                        act, stalls, limit, iters, caps).any())
+                if none_live:
+                    n_steps = k + 1
+                    break
+        spans.count("engine.steps", n_steps)
         idx = torch.arange(max_iters + 1, device=device)[None, :]
         trace = torch.where(idx <= iters[:, None], trace, vals[:, None])
         return bits, vals, iters, trace
@@ -946,6 +959,7 @@ def _schedule_engine_batched(objective, enc: Encoding, n_restarts: int,
         best_res = torch.zeros(n_restarts, dtype=torch.int32, device=device)
         pos = torch.zeros(n_restarts, dtype=torch.int32, device=device)
         trace = vals[:, None].repeat(1, t_max)
+        n_steps = 0
         for r in range(n_res):
             if r > 0:                   # paper step 5, in lockstep
                 bits = tables.reencode(bits, r - 1, r)[
@@ -959,6 +973,7 @@ def _schedule_engine_batched(objective, enc: Encoding, n_restarts: int,
             stalls = torch.zeros(n_restarts, dtype=torch.int32,
                                  device=device)
             for k in range(max_iters if any_steps else 0):
+                n_steps += 1
                 live = _batched_live(act, stalls, limit, k, caps)
                 nb, nv, improved = steps[r](bits, vals, k, live)
                 bits = torch.where(live[:, None], nb, bits)
@@ -972,10 +987,13 @@ def _schedule_engine_batched(objective, enc: Encoding, n_restarts: int,
                 best_bits = torch.where(better[:, None], wide(bits),
                                         best_bits)
                 best_res = torch.where(better, r, best_res)
-                if ((k + 1) % STALL_CHECK_EVERY == 0 and not bool(
-                        _batched_live(act, stalls, limit, k + 1,
-                                      caps).any())):
-                    break
+                if (k + 1) % STALL_CHECK_EVERY == 0:
+                    with spans.span("engine.stall_read"):
+                        none_live = not bool(_batched_live(
+                            act, stalls, limit, k + 1, caps).any())
+                    if none_live:
+                        break
+        spans.count("engine.steps", n_steps)
         idx = torch.arange(t_max, device=device)[None, :]
         trace = torch.where(idx <= pos[:, None], trace, vals[:, None])
         return bits, vals, best_vals, best_bits, best_res, pos, trace
@@ -988,13 +1006,16 @@ def _batched_engine_for(objective, enc: Encoding, mesh, n_restarts: int,
                         res_bits: tuple, inner, device: torch.device):
     """The batched engine, built once per objective, geometry, width and
     device (``distributed.engine``)."""
+    def build():
+        with spans.span("engine.build"):
+            return make_distributed_engine_batched(
+                objective, enc, n_restarts, mesh=mesh, pop_axes=pop_axes,
+                max_iters=max_iters, virtual_block=virtual_block,
+                res_bits=res_bits, inner=inner, device=device)
+
     return _ENGINES.get(
         ("batched", objective.fn, enc, mesh, n_restarts, pop_axes,
-         max_iters, virtual_block, res_bits, inner, str(device)),
-        lambda: make_distributed_engine_batched(
-            objective, enc, n_restarts, mesh=mesh, pop_axes=pop_axes,
-            max_iters=max_iters, virtual_block=virtual_block,
-            res_bits=res_bits, inner=inner, device=device))
+         max_iters, virtual_block, res_bits, inner, str(device)), build)
 
 
 class BatchedResult(NamedTuple):
@@ -1015,10 +1036,15 @@ class PendingBatched:
     run already on the caller's.  :meth:`finish` joins the thread,
     re-raises its error and assembles the :class:`BatchedResult`."""
 
-    __slots__ = ("_finish",)
+    __slots__ = ("_finish", "_wait")
 
-    def __init__(self, finish):
-        self._finish = finish
+    def __init__(self, finish, wait):
+        self._finish, self._wait = finish, wait
+
+    def wait(self, timeout: float | None = None) -> None:
+        """Wait for the wave's loop (``TimeoutError`` after ``timeout``
+        seconds); an error of the loop is raised here."""
+        self._wait(timeout)
 
     def finish(self, timeout: float | None = None) -> BatchedResult:
         """Wait for the wave (``TimeoutError`` after ``timeout`` seconds)
@@ -1052,11 +1078,13 @@ _STREAMS = _StreamPool()
 
 class _Wave(threading.Thread):
     """A wave's loop on its own thread (and CUDA stream); ``ready`` is an
-    event of the submitting stream that the wave's stream waits for."""
+    event of the submitting stream that the wave's stream waits for.  A
+    traced wave (``spans``) stays traced on its thread."""
 
     def __init__(self, fn, device: torch.device, inputs: list):
         super().__init__(name="dgo-wave", daemon=True)
         self._fn, self._device, self._inputs = fn, device, inputs
+        self._wave = spans.current_wave()
         self.result = self.error = None
         self._ready = None
         if device.type == "cuda":
@@ -1065,21 +1093,25 @@ class _Wave(threading.Thread):
 
     def run(self) -> None:
         try:
-            if self._device.type != "cuda":
-                self.result = self._fn()
-                return
-            stream = _STREAMS.acquire(self._device)
-            try:
-                with torch.cuda.stream(stream):
-                    stream.wait_event(self._ready)
-                    for t in self._inputs:
-                        t.record_stream(stream)
-                    self.result = self._fn()
-                stream.synchronize()
-            finally:
-                _STREAMS.release(self._device, stream)
+            with spans.wave(self._wave):
+                self._run()
         except BaseException as err:       # noqa: BLE001 — re-raised by
             self.error = err               # finish() on the caller
+
+    def _run(self) -> None:
+        if self._device.type != "cuda":
+            self.result = self._fn()
+            return
+        stream = _STREAMS.acquire(self._device)
+        try:
+            with torch.cuda.stream(stream):
+                stream.wait_event(self._ready)
+                for t in self._inputs:
+                    t.record_stream(stream)
+                self.result = self._fn()
+            stream.synchronize()
+        finally:
+            _STREAMS.release(self._device, stream)
 
     def join_result(self, timeout: float | None):
         self.join(timeout)
@@ -1151,13 +1183,18 @@ def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
                                  device)
     # each start snapped to the first lattice and evaluated alone: a
     # slot's trace[0] is its one-restart run's, bit for bit
-    vals0 = _parent_vals(objective, decode(encode(x0, enc0), enc0))
+    with spans.span("engine.starts"):
+        vals0 = _parent_vals(objective, decode(encode(x0, enc0), enc0))
 
     if len(schedule) == 1:
         def run():
-            bits, vals, iters, trace = engine(x0, vals0, alive, active,
-                                              slot_iters)
-            return bits, vals, iters.cpu().numpy(), trace.cpu().numpy()
+            with spans.span("engine.loop"):
+                bits, vals, iters, trace = engine(x0, vals0, alive, active,
+                                                  slot_iters)
+                with spans.span("engine.fetch"):
+                    iters, trace = iters.cpu().numpy(), trace.cpu().numpy()
+                _count_slot_steps(iters)
+            return bits, vals, iters, trace
 
         get = _start(run, device, [x0, vals0], threaded)
 
@@ -1169,14 +1206,18 @@ def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
                 trace=trace[:, : int(iters.max()) + 1],
                 best=int(np.argmin(vals.cpu().numpy())))
 
-        return PendingBatched(finish)
+        return PendingBatched(finish, get)
 
     def run_schedule():
-        (_, _, best_vals, best_bits, best_res, iters, trace) = engine(
-            x0, vals0, alive, active, slot_iters)
-        return (iters.cpu().numpy(), trace.cpu().numpy(),
-                best_bits.cpu().numpy(), best_res.cpu().numpy(),
-                best_vals.cpu().numpy())
+        with spans.span("engine.loop"):
+            (_, _, best_vals, best_bits, best_res, iters, trace) = engine(
+                x0, vals0, alive, active, slot_iters)
+            with spans.span("engine.fetch"):
+                out = (iters.cpu().numpy(), trace.cpu().numpy(),
+                       best_bits.cpu().numpy(), best_res.cpu().numpy(),
+                       best_vals.cpu().numpy())
+            _count_slot_steps(out[0])
+        return out
 
     get = _start(run_schedule, device, [x0, vals0], threaded)
 
@@ -1204,7 +1245,14 @@ def _submit_batched(objective, enc: Encoding, x0s, *, mesh=None,
             iterations=iters_h, trace=mono, best=int(np.argmin(vals_h)),
             best_xs=best_xs)
 
-    return PendingBatched(finish_schedule)
+    return PendingBatched(finish_schedule, get)
+
+
+def _count_slot_steps(iters: np.ndarray) -> None:
+    """The live slots' steps of a traced wave (``engine.slot_steps``),
+    from the host copy of its step counts."""
+    if spans.traced():
+        spans.count("engine.slot_steps", int(iters.sum()))
 
 
 def _use_here(*tensors) -> None:

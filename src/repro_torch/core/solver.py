@@ -763,6 +763,12 @@ class PendingWave:
         self._contexts = contexts
         self._device = device
 
+    def wait(self, timeout: float | None = None) -> None:
+        """Wait for the wave's loop to end, its results on the host
+        (``TimeoutError`` after ``timeout`` seconds); raises whatever the
+        loop raised.  :meth:`finalize` waits first too."""
+        self._pending.wait(timeout)
+
     def finalize(self, timeout: float | None = None) -> list[SolveResult]:
         """Wait for the wave (``TimeoutError`` after ``timeout`` seconds)
         and assemble one result per request; raises whatever the wave's

@@ -19,6 +19,11 @@ embeddings, an encoder-decoder's stub audio frames.
   PYTHONPATH=src python -m repro_torch.launch.serve --dgo \\
       --problems rastrigin:2,shekel,ackley:5 --rps 20 --duration 5
 
+  # the same under the profiler: PATH/trace.json, one Chrome trace of
+  # the card, the host and the serving path's spans; PATH/spans.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --dgo \\
+      --problems remote_sensing --restarts 64 --waves 8 --trace PATH
+
 DGO: ``--problems`` takes ``name[:n_vars]`` specs from the objective
 registry, checked here; the scheduler buckets requests by engine
 signature, pads each bucket to ``--restarts`` slots and serves it as one
@@ -43,10 +48,12 @@ Both run on the CUDA card (``serve_lm(..., device="cpu")`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import threading
 import time
+from pathlib import Path
 
 import torch
 
@@ -295,6 +302,33 @@ def _report(sched, problems, best: float, wall_s: float,
     return out
 
 
+@contextlib.contextmanager
+def _profiled(path: str | None, device):
+    """The ``with`` block under one ``torch.profiler`` session, CPU and
+    (on the card) CUDA activity, when ``path`` is given; then
+    ``path/trace.json``, the profiler's Chrome trace with the serving
+    path's spans in it (``core.spans.export_chrome``), and
+    ``path/spans.json``, ``core.spans.snapshot()``."""
+    if path is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import spans
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    spans.clear()
+    with profile(activities=activities) as prof:
+        yield
+    out = Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    spans.export_chrome(out / "trace.json")
+    (out / "spans.json").write_text(json.dumps(spans.snapshot()))
+
+
 def _run_serving_loop(args, problems, rps: float | None, device=None):
     """One serving run: open loop at ``rps`` (Poisson arrivals for
     ``--duration`` seconds) or, with ``rps=None``, closed loop
@@ -328,40 +362,41 @@ def _run_serving_loop(args, problems, rps: float | None, device=None):
                 h.deadline_at = arrived_at + args.deadline_s
         handles.append(h)
 
-    t_start = time.perf_counter()
     try:
-        if rps is not None:
-            t_end = t_start + args.duration
-            stop = threading.Event()
+        with _profiled(args.trace, device):
+            t_start = time.perf_counter()
+            if rps is not None:
+                t_end = t_start + args.duration
+                stop = threading.Event()
 
-            def arrivals():
-                # the arrival clock lives on its own thread, so dispatch
-                # never delays (or batches up) arrivals
-                next_arrival = t_start
-                while next_arrival < t_end and not stop.is_set():
-                    now = time.perf_counter()
-                    if next_arrival > now:
-                        time.sleep(min(next_arrival - now, 0.01))
-                        continue
-                    submit_next(arrived_at=next_arrival)
-                    next_arrival += rng.exponential(1.0 / rps)
+                def arrivals():
+                    # the arrival clock lives on its own thread, so dispatch
+                    # never delays (or batches up) arrivals
+                    next_arrival = t_start
+                    while next_arrival < t_end and not stop.is_set():
+                        now = time.perf_counter()
+                        if next_arrival > now:
+                            time.sleep(min(next_arrival - now, 0.01))
+                            continue
+                        submit_next(arrived_at=next_arrival)
+                        next_arrival += rng.exponential(1.0 / rps)
 
-            arr = threading.Thread(target=arrivals, name="dgo-arrivals",
-                                   daemon=True)
-            arr.start()
-            try:
-                while arr.is_alive() or len(sched.queue):
-                    if not sched.step():
-                        time.sleep(0.001)
-            finally:
-                stop.set()
-                arr.join()
-            sched.drain()
-        else:
-            for _ in range(args.restarts * args.waves):
-                submit_next()
-            sched.drain()
-        wall_s = time.perf_counter() - t_start
+                arr = threading.Thread(target=arrivals, name="dgo-arrivals",
+                                       daemon=True)
+                arr.start()
+                try:
+                    while arr.is_alive() or len(sched.queue):
+                        if not sched.step():
+                            time.sleep(0.001)
+                finally:
+                    stop.set()
+                    arr.join()
+                sched.drain()
+            else:
+                for _ in range(args.restarts * args.waves):
+                    submit_next()
+                sched.drain()
+            wall_s = time.perf_counter() - t_start
     finally:
         sched.close()
     return sched, handles, wall_s, submitted
@@ -378,6 +413,8 @@ def serve_dgo(args, device=None) -> dict:
         raise SystemExit(f"--rps must be > 0, got {args.rps}")
     if (args.rps is not None or args.sweep_rps) and args.duration <= 0:
         raise SystemExit(f"--duration must be > 0, got {args.duration}")
+    if args.trace is not None and args.sweep_rps:
+        raise SystemExit("--trace profiles one serving run, not a sweep")
     problems = _parse_problem_specs(args)
 
     if args.sweep_rps:
@@ -487,6 +524,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-bits", type=int, default=None,
                     help="fold a resolution schedule up to this many bits "
                          "into every dispatch (None = fixed resolution)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="run the serving loop under torch.profiler and "
+                         "write PATH/trace.json (the profiler's Chrome "
+                         "trace with the serving path's spans) and "
+                         "PATH/spans.json (the spans' totals)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="persist each subspace-lm tuning problem's winner "
                          "parameters through the checkpoint store")

@@ -22,7 +22,7 @@ Quickstart::
                for i in range(20)]
     sched.drain()
     best = [h.result().best_f for h in handles]
-    print(sched.metrics())          # p50/p95 latency, runs/s, cache stats
+    print(sched.metrics())          # p50/p95 latency, fill, cache stats
 
 The fault-tolerance contract is the reference's: a bounded queue with an
 admission policy (``reject`` / ``shed-lowest-priority`` / ``block``,

@@ -105,8 +105,10 @@ class ServingMetrics:
 
     def snapshot(self) -> dict:
         """Everything a serving endpoint reports: request/wave counters,
-        bucket fill, latency percentiles, throughput over busy time, and
-        the engine-cache subsystem snapshot (``core.cache.snapshot()``)."""
+        bucket fill, latency percentiles and the engine-cache subsystem
+        snapshot (``core.cache.snapshot()``).  Throughput is the
+        caller's: completions over its own wall clock (``busy_s`` counts
+        overlapping waves twice)."""
         from repro_torch.core import cache
 
         cache_snap = cache.snapshot()
@@ -125,8 +127,6 @@ class ServingMetrics:
                               if self.slots else None),
             "busy_s": self.busy_s,
             "backoff_s": self.backoff_s,
-            "runs_per_s": (self.completed / self.busy_s
-                           if self.busy_s > 0 else None),
             # pipeline health: how often submissions overlapped an
             # in-flight wave, and the deepest depth reached (1 == fully
             # synchronous; see record_inflight)

@@ -58,6 +58,7 @@ import threading
 import time
 from collections import deque
 
+from repro_torch.core import spans
 from repro_torch.core.solver import submit_wave
 from repro_torch.serving.scheduler import Scheduler, _check_deadline
 
@@ -66,14 +67,15 @@ class _InFlight:
     """One submitted-but-unfinalized wave, queued for the worker in
     dispatch order."""
 
-    __slots__ = ("bucket", "width", "sig", "pending", "t0")
+    __slots__ = ("bucket", "width", "sig", "pending", "t0", "wave")
 
-    def __init__(self, bucket, width, sig, pending, t0):
+    def __init__(self, bucket, width, sig, pending, t0, wave):
         self.bucket = bucket
         self.width = width
         self.sig = sig
         self.pending = pending
         self.t0 = t0
+        self.wave = wave        # spans.Wave when traced, else None
 
 
 class PipelinedScheduler(Scheduler):
@@ -190,23 +192,25 @@ class PipelinedScheduler(Scheduler):
             prior = len(self._inflight)
             if prior >= self.max_in_flight:
                 return False
-        popped = self._next_bucket()
+        popped = self._pop_wave()
         if popped is None:
             return False
-        bucket, width, sig = popped
-        self._dispatches += 1
+        bucket, width, sig, wave = popped
         seqs = frozenset(h.seq for h in bucket)
         t0 = time.perf_counter()
         try:
-            if self.faults is not None:
-                self.faults.before_dispatch(self._dispatches, seqs)
-            if self.injector is not None:
-                self.injector.maybe_fail(self._dispatches)
-            pending = submit_wave(
-                [h.request for h in bucket], mesh=self.mesh,
-                pop_axes=self.pop_axes, virtual_block=self.virtual_block,
-                max_bits=self.max_bits, bits_step=self.bits_step,
-                pad_to=width, device=self.device)
+            with spans.wave(wave), spans.span(
+                    "serving.submit", start_ns=wave and wave.popped_ns):
+                if self.faults is not None:
+                    self.faults.before_dispatch(self._dispatches, seqs)
+                if self.injector is not None:
+                    self.injector.maybe_fail(self._dispatches)
+                pending = submit_wave(
+                    [h.request for h in bucket], mesh=self.mesh,
+                    pop_axes=self.pop_axes,
+                    virtual_block=self.virtual_block,
+                    max_bits=self.max_bits, bits_step=self.bits_step,
+                    pad_to=width, device=self.device)
         except Exception as err:            # noqa: BLE001 — submit-side
             # failures (fault plan, injector, bad input) are absorbed here
             # on the scheduler thread; fetch-side ones on the worker
@@ -215,7 +219,7 @@ class PipelinedScheduler(Scheduler):
             return True
         with self._flight:
             self._inflight.append(_InFlight(bucket, width, sig,
-                                            pending, t0))
+                                            pending, t0, wave))
             self._flight.notify_all()
         self.metrics_.record_inflight(prior + 1)
         return True
@@ -290,20 +294,25 @@ class PipelinedScheduler(Scheduler):
     def _finalize(self, flight: _InFlight) -> None:
         """Block on one wave's device results and run the base class's
         terminal bookkeeping (completion, retry/backoff/bisection)."""
-        try:
-            results = flight.pending.finalize()
-        except Exception as err:            # noqa: BLE001 — the serving
-            # loop survives any dispatch failure by requeueing its bucket
-            self.metrics_.record_failed_wave(
-                time.perf_counter() - flight.t0)
-            self._register_failure(flight.sig, flight.bucket, err)
-            return
-        # wave wall time spans submit -> results consumed; overlapped
-        # waves overlap their busy_s, so wall-clock throughput is the
-        # caller's (completed / wall), not completed / busy_s
-        elapsed = time.perf_counter() - flight.t0
-        self._note_success(flight.sig)      # the bucket recovered
-        self._complete_bucket(flight.bucket, results)
+        with spans.wave(flight.wave):
+            try:
+                flight.pending.wait()
+                back_ns = spans.now() if flight.wave else None
+                results = flight.pending.finalize()
+            except Exception as err:        # noqa: BLE001 — the serving
+                # loop survives any dispatch failure by requeueing it
+                self.metrics_.record_failed_wave(
+                    time.perf_counter() - flight.t0)
+                self._register_failure(flight.sig, flight.bucket, err)
+                return
+            with spans.span("serving.finalize", start_ns=back_ns):
+                # wave wall time spans submit -> results consumed;
+                # overlapped waves overlap their busy_s, so wall-clock
+                # throughput is the caller's (completed / wall), not
+                # completed / busy_s
+                elapsed = time.perf_counter() - flight.t0
+                self._note_success(flight.sig)  # the bucket recovered
+                self._complete_bucket(flight.bucket, results)
         self.metrics_.record_wave(len(flight.bucket), flight.width,
                                   elapsed)
         self._note_dispatch_time(elapsed)

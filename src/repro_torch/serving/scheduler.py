@@ -51,6 +51,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.solver import (
     NonFiniteResult, SolveRequest, engine_signature, solve_many,
 )
@@ -291,6 +292,28 @@ class Scheduler:
             self.metrics_.record_bisect()
         return bucket, width, sig
 
+    def _pop_wave(self):
+        """Pop the next bucket (:meth:`_next_bucket`) into a wave and
+        number it.  Returns ``(bucket, width, sig, wave)`` or None;
+        ``wave`` is a :class:`~repro_torch.core.spans.Wave` when a profiler
+        session records on this thread (the one check a wave), and its
+        requests' queue waits are recorded here, else None."""
+        traced = spans.profiling()
+        popped_ns = spans.now() if traced else 0
+        popped = self._next_bucket()
+        if popped is None:
+            return None
+        self._dispatches += 1
+        if not traced:
+            return (*popped, None)
+        wave = spans.Wave(self._dispatches, popped_ns)
+        with spans.wave(wave):
+            for handle in popped[0]:
+                spans.record("serving.queue_wait",
+                             spans.from_perf(handle.submitted_at), popped_ns,
+                             request=handle.seq)
+        return (*popped, wave)
+
     def _complete_bucket(self, bucket: list[RequestHandle],
                          results) -> int:
         """Terminal bookkeeping for one successful dispatch: apply the
@@ -318,31 +341,35 @@ class Scheduler:
         """Serve one signature bucket; returns the number of requests
         completed (0 when nothing was poppable — queue empty or every
         bucket in backoff — or the dispatch failed and was requeued)."""
-        popped = self._next_bucket()
+        popped = self._pop_wave()
         if popped is None:
             return 0
-        bucket, width, sig = popped
-        self._dispatches += 1
+        bucket, width, sig, wave = popped
         seqs = frozenset(h.seq for h in bucket)
         t0 = time.perf_counter()
-        try:
-            if self.faults is not None:
-                self.faults.before_dispatch(self._dispatches, seqs)
-            if self.injector is not None:
-                self.injector.maybe_fail(self._dispatches)
-            results = solve_many(
-                [h.request for h in bucket], mesh=self.mesh,
-                pop_axes=self.pop_axes, virtual_block=self.virtual_block,
-                max_bits=self.max_bits, bits_step=self.bits_step,
-                pad_to=width, device=self.device)
-        except Exception as err:            # noqa: BLE001 — the serving
-            # loop survives any dispatch failure by requeueing its bucket
-            self.metrics_.record_failed_wave(time.perf_counter() - t0)
-            self._register_failure(sig, bucket, err)
-            return 0
-        elapsed = time.perf_counter() - t0
-        self._note_success(sig)             # the bucket recovered
-        completed = self._complete_bucket(bucket, results)
+        with spans.wave(wave):
+            try:
+                with spans.span("serving.submit",
+                                start_ns=wave and wave.popped_ns):
+                    if self.faults is not None:
+                        self.faults.before_dispatch(self._dispatches, seqs)
+                    if self.injector is not None:
+                        self.injector.maybe_fail(self._dispatches)
+                    results = solve_many(
+                        [h.request for h in bucket], mesh=self.mesh,
+                        pop_axes=self.pop_axes,
+                        virtual_block=self.virtual_block,
+                        max_bits=self.max_bits, bits_step=self.bits_step,
+                        pad_to=width, device=self.device)
+            except Exception as err:        # noqa: BLE001 — the serving
+                # loop survives any dispatch failure by requeueing it
+                self.metrics_.record_failed_wave(time.perf_counter() - t0)
+                self._register_failure(sig, bucket, err)
+                return 0
+            elapsed = time.perf_counter() - t0
+            with spans.span("serving.finalize"):
+                self._note_success(sig)     # the bucket recovered
+                completed = self._complete_bucket(bucket, results)
         self.metrics_.record_wave(len(bucket), width, elapsed)
         self.metrics_.record_inflight(1)    # synchronous: depth always 1
         self._note_dispatch_time(elapsed)
@@ -420,7 +447,7 @@ class Scheduler:
     # -- observability -----------------------------------------------------
 
     def metrics(self) -> dict:
-        """The serving metrics snapshot (latency percentiles, throughput,
+        """The serving metrics snapshot (latency percentiles, counters,
         bucket fill, cache stats) plus scheduler + queue lifecycle state
         (admission/deadline/backoff/quarantine counters)."""
         out = self.metrics_.snapshot()
