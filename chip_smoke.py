@@ -26,6 +26,13 @@ Phases (any failure exits non-zero; none is caught):
              the remote-sensing MLP, those values bitwise against the
              kernel with every hidden unit recomputed; each schedule
              step's shape timed beside its bound (``by_shape``);
+2b. table  — Rastrigin at 8 bits, n = 9, 64 and 1,000, the engines' rows,
+             one parent and R = 128 (the r1000 cell's wave), with the
+             term table forced at every n: its values bitwise the cosine
+             path's and within the bar of the plain version's, both paths
+             timed beside 6 operations a term at 67 TFLOP/s, the blocks
+             an SM holds, ptxas's registers and spills (``term_table``
+             in the popstep entry; the probe behind ``ops.TABLE_MIN_VARS``);
 3. fold    — the cross-block rule the kernel applies in its last block,
              launched alone (``ops.fold_partials``, counted in
              ``ops.fold_launches``, which the main path reads as 0) vs
@@ -473,6 +480,10 @@ KERNEL_PACKAGES = ("popstep", "graycode", "fixedpoint", "popmin",
                    "flash_attention")
 
 
+# each library's ptxas report from phase_build ("" when it was built before)
+PTXAS: dict = {}
+
+
 def phase_build() -> None:
     import importlib
 
@@ -485,6 +496,7 @@ def phase_build() -> None:
     print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} "
           f"s (one nvcc each, in parallel)")
     for lib, (path, log) in zip(libs, built):
+        PTXAS[lib.name] = log
         shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
         print(f"[build] {lib.name}: {shown}")
         for line in log.splitlines():
@@ -774,6 +786,101 @@ def popstep_bound_ms(rs: dict) -> tuple[float, str]:
           f"{full[0] * 1e3:.2f} us ({full[1]}); needed work -> "
           f"{needed[0] * 1e3:.2f} us ({needed[1]})")
     return needed
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: Rastrigin's term table
+# ---------------------------------------------------------------------------
+
+TABLE_NS = (9, 64, 1000)     # rastrigin at 8 bits: serve --dgo's, the rule's
+                             # threshold, the r1000 cell's
+TABLE_RESTARTS = (1, 128)    # one parent, and the r1000 cell's wave
+
+
+def ptxas_of(lib: str, entry: str) -> str:
+    """The ptxas lines (registers, spills) of the entry function whose
+    mangled name contains ``entry``, from phase_build's report."""
+    lines, take = [], False
+    for line in PTXAS.get(lib, "").splitlines():
+        if "Compiling entry function" in line:
+            take = entry in line
+        elif take and ("registers" in line or "spill" in line):
+            lines.append(" ".join(line.replace("ptxas info    :", "").split()))
+    return "; ".join(lines) or "not in this run's build report"
+
+
+def phase_term_table(dev) -> dict:
+    """Rastrigin at 8 bits, n in ``TABLE_NS``, the engines' rows, one
+    parent and R = 128 random parents: the table path's values bitwise
+    the cosine path's (``reuse=False``) and the plain version's within the
+    long-sum bar, each path's device time a launch beside the bound of 6
+    operations a term at 67 TFLOP/s, the blocks the card holds per SM with
+    each path's shared memory.  The table path is forced at every n
+    (``ops.TABLE_MIN_VARS`` lowered for the probe), so the times set the
+    shape rule's threshold."""
+    import torch
+
+    from repro_torch.core import objectives
+    from repro_torch.kernels.popstep import ops
+    from repro_torch.kernels.popstep.kernel import LIBRARY
+
+    rng = np.random.default_rng(28)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 1)
+    print(f"[table] popstep_kernel<1> ptxas: "
+          f"{ptxas_of('popstep', 'popstep_kernelILi1E')}")
+    out, threshold = {}, ops.TABLE_MIN_VARS
+    ops.TABLE_MIN_VARS = 1
+    try:
+        for n in TABLE_NS:
+            obj = objectives.get("rastrigin", n=n)
+            enc = obj.encoding
+            ids, valid, block = _step_inputs(enc, dev)
+            atol, _ = long_sum_atol("rastrigin", enc)
+            for r in TABLE_RESTARTS:
+                parents = torch.as_tensor(rng.integers(
+                    0, 2, (r, enc.n_bits)).astype(np.int8), device=dev)
+                steps = {path: ops._prepare_cuda(
+                    obj, ids, enc, valid, ids.shape[0] // block, restarts=r,
+                    reuse=path == "table") for path in ("table", "cosine")}
+                res = {path: step(parents) for path, step in steps.items()}
+                tv, cv = steps["table"].values, steps["cosine"].values
+                check(steps["table"].table and not steps["cosine"].table,
+                      f"n={n} R={r}: the paths were not the ones asked for")
+                check(torch.equal(tv.view(torch.int32), cv.view(torch.int32))
+                      and torch.equal(res["table"][1], res["cosine"][1]),
+                      f"n={n} R={r}: the table path's values are not the "
+                      f"cosine path's, bitwise")
+                want = torch.stack([ops.child_values_plain(
+                    obj, parents[i], ids, enc, valid) for i in range(r)])
+                check(bool(torch.isclose(tv, want, rtol=RTOL,
+                                         atol=atol).all()),
+                      f"n={n} R={r}: a child's value differs from the plain "
+                      f"version's beyond the bar (atol {atol:.3g})")
+                bound = (r * enc.population * n * 6) / FP32_PEAK_FLOPS * 1e3
+                entry = {"bound_ms": bound}
+                for path, step in steps.items():
+                    ms = device_ms(lambda: step(parents), 10, dev,
+                                   name="popstep_kernel")
+                    smem = step._grid[1]
+                    per_sm = (ops._resident_blocks(step._lib, ops._RAST_ID,
+                                                   smem, dev) / sms
+                              if dev.type == "cuda" else float("nan"))
+                    entry[path] = {"ms": ms, "share": bound / ms,
+                                   "smem": smem, "blocks_per_sm": per_sm}
+                    print(f"[table] rastrigin n={n} 8 bits R={r} "
+                          f"({ids.shape[0]} rows) {path:<6} {ms:.4f} ms "
+                          f"(device), bound {bound:.4f} ms ({bound / ms:.1%}"
+                          f"), {smem} B shared a block, {per_sm:g} blocks "
+                          f"an SM")
+                print(f"[table] rastrigin n={n} R={r}: table == cosine "
+                      f"bitwise, {r * ids.shape[0]} child values; cosine / "
+                      f"table {entry['cosine']['ms'] / entry['table']['ms']:.2f}"
+                      f"x")
+                out[f"n={n} R={r}"] = entry
+    finally:
+        ops.TABLE_MIN_VARS = threshold
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4160,6 +4267,7 @@ def main() -> None:
     phase_build()
     rs = phase_kernel_vs_plain(dev)
     bound_ms, bound_by = popstep_bound_ms(rs)
+    rs["term_table"] = phase_term_table(dev)
     timing_for("popstep_fold")
     fold = phase_fold(dev, rs["enc"].population)
     fold_bound, fold_by = fold_bound_ms(fold)
@@ -4225,7 +4333,8 @@ def main() -> None:
         "full_work_bound_ms": rs["full_work_bound_ms"],
         "by_path": {path: n for path, (n, _) in by_path.items()},
         "by_shape": rs["by_shape"],
-        "by_restarts": restarts["by_restarts"]}, {
+        "by_restarts": restarts["by_restarts"],
+        "term_table": rs["term_table"]}, {
         "name": "popstep_fold", "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/popstep/kernel.py:110",
         "launches": n_fold, "max_abs_err": fold["max_abs_err"],

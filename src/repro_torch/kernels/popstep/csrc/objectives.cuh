@@ -74,17 +74,33 @@ struct Objective<kQuadratic> {
   }
 };
 
-// 10 n + sum (x^2 - 10 cos(2 pi x))
+// One term of Rastrigin's sum, x^2 - 10 cos(2 pi x), each operation
+// rounded on its own, as the plain version computes it: no contraction
+// that could depend on the surrounding code, so the cosine path below and
+// popstep.cu's term table give a term the same bits.
+__device__ __forceinline__ float rastrigin_term(float x) {
+  return __fsub_rn(__fmul_rn(x, x),
+                   __fmul_rn(10.0f, cosf(__fmul_rn(kTwoPi, x))));
+}
+
+// 10 n + sum (x^2 - 10 cos(2 pi x)).  A step at <= 8 bits and many
+// variables reads the terms from a table of the 2^bits levels instead
+// (popstep.cu, table_value): the cosine a term bounds eval by issue, the
+// table by shared loads.  Both paths add lane l's terms of variables
+// l, l + 32, ... in that order, then total() the lanes, so a child's
+// value is the same bits on either.
 template <>
 struct Objective<kRastrigin> {
+  __device__ __forceinline__ static float total(float acc, int n) {
+    return __fadd_rn(__fmul_rn(10.0f, static_cast<float>(n)),
+                     warp_sum(acc));
+  }
+
   __device__ static float eval(const float* x, int n, const ObjParams&,
                                int lane) {
     float acc = 0.0f;
-    for (int v = lane; v < n; v += 32) {
-      const float xv = x[v];
-      acc += xv * xv - 10.0f * cosf(kTwoPi * xv);
-    }
-    return 10.0f * static_cast<float>(n) + warp_sum(acc);
+    for (int v = lane; v < n; v += 32) acc += rastrigin_term(x[v]);
+    return total(acc, n);
   }
 };
 

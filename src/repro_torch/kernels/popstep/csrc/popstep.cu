@@ -73,6 +73,19 @@
 // samples.  What limits the child loop below that is not measured (no
 // ncu on the card's machine).
 //
+// Rastrigin's step (1,000 variables, 8 bits: 15,999 children of 1,000
+// terms) was bound by issue: a precise cosf is ~40 instructions, and every
+// child took one a term.  A term is one function of the variable's level
+// (one lo, one scale), so at <= 8 bits each block computes the 2^bits
+// terms once (fill_term_table) and a child looks its terms up
+// (table_value): per term a shared load of the parent's level, at most an
+// XOR, a conflict-free shared load of the term, an add.  Two shared loads
+// a lane-term now bound it (H100: one warp-wide 4-byte load a clock an
+// SM).  The table is the same precise cosf through rastrigin_term and the
+// sum keeps eval's order, so every child's value is bitwise the cosine
+// path's.  Below ops.TABLE_MIN_VARS variables the fill costs more than the
+// terms it saves, and the cosine path stays.
+//
 // Built by kernel.py (through kernels/_build.py) with nvcc for sm_90a (no
 // --use_fast_math) into a shared library with a plain C interface; every
 // entry point launches on the caller's stream and returns the CUDA error.
@@ -274,6 +287,8 @@ struct StepArgs {
   int n_vblocks;
   int n_shards;                    // runs of n_vblocks / n_shards blocks
   int sentinel;                    // the cross-block fold's start id
+  int table;                       // Rastrigin: terms from the block's
+                                   // table of levels (bits <= 8)
   const bool* live;                // (R,) 0 -> restart skipped, or null
   float* vals;                     // (R, K) each child's value
   unsigned long long* keys;        // (R, n_vblocks) all ones between launches
@@ -297,14 +312,60 @@ __device__ __forceinline__ Child child_at(const StepArgs& a, int idx) {
                a.masks != nullptr ? a.masks[row] : 0ull};
 }
 
+// Rastrigin's term of every level, 2^bits of them, one copy per bank:
+// copy c of level l is word 32 l + c, and lane c reads copy c, so a warp's
+// 32 lookups never conflict, whatever the levels.  Filled by every thread
+// of the block from the parent's encoding (one precise cosf a level); a
+// thread writes its level's copies starting at its own lane's bank, so
+// the stores do not conflict either.
+__device__ void fill_term_table(float* tab, int bits, float lo,
+                                float scale) {
+  const int lane = threadIdx.x & 31;
+  for (int l = threadIdx.x; l < (1 << bits); l += kThreads) {
+    const float t = rastrigin_term(decode_level(l, lo, scale));
+#pragma unroll 8
+    for (int c = 0; c < 32; ++c) tab[32 * l + ((c + lane) & 31)] = t;
+  }
+}
+
+// A child's Rastrigin value from the term table (``tab_l``: this lane's
+// copy of level 0).  Its level of variable k is the parent's before the
+// segment's first variable v_lo, the parent's XOR the tail (all ones when
+// e - s is odd, else none) from the first variable wholly at or past e,
+// v_hi, and dgo::child_level only for the variables in between, which the
+// segment touches (one or two but at the top of the segment tree).  Lane
+// l adds variables l, l + 32, ... in that order, as Objective::eval does
+// over the decoded point, and total() is the same: the same bits.
+__device__ __forceinline__ float table_value(const unsigned* plv,
+                                             const float* tab_l, int n,
+                                             int bits, int s, int e,
+                                             unsigned even_mask, int lane) {
+  const int v_lo = s / bits;
+  const int v_hi = (e + bits - 1) / bits;
+  const unsigned tail = ((e - s) & 1) ? (1u << bits) - 1u : 0u;
+  float acc = 0.0f;
+  int k = lane;
+#pragma unroll 4
+  for (; k < v_lo; k += 32) acc += tab_l[32 * plv[k]];
+  for (; k < v_hi; k += 32)
+    acc += tab_l[32 * child_level(plv[k], k, bits, s, e, even_mask)];
+#pragma unroll 4
+  for (; k < n; k += 32) acc += tab_l[32 * (plv[k] ^ tail)];
+  return Objective<kRastrigin>::total(acc, n);
+}
+
 // Dynamic shared memory (floats): the parent's point and levels
 // (2 * n_vars), the remote-sensing data (RS::smem_floats(m): the parent's
 // hidden layer, the samples, the labels), one child point per warp
-// (kWarps * n_vars), which first holds the parent's bit string.
+// (kWarps * n_vars), which first holds the parent's bit string; on
+// Rastrigin's table path that area holds the term table (32 << bits)
+// instead, and no child point is written.
 template <int OBJ>
 __global__ void __launch_bounds__(kThreads, 2)
     popstep_kernel(StepArgs a) {
   constexpr bool kReuse = OBJ == kRemoteSensing;
+  // uniform across the grid: Rastrigin's terms read from a table
+  const bool table = OBJ == kRastrigin && a.table;
   // restart r: its parent, its value buffer, its selection state and its
   // output pair; a restart that is not live does nothing
   const int r = blockIdx.y;
@@ -350,6 +411,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     RS::parent_hidden(xp, a.obj, data);
     __syncthreads();
   }
+  const float* tab_l = xs0 + lane;
+  if (table) {        // over the bit string, which the levels replaced
+    fill_term_table(xs0, a.bits, a.lo, a.scale);
+    __syncthreads();
+  }
 
   // the children: the first dealt round the blocks, the rest from the
   // counter (taken one child ahead, so its latency hides behind the work)
@@ -360,7 +426,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (n_dealt < a.n_rows && lane == 0)
       next = n_dealt + atomicAdd(ctl, 1);
     float v = CUDART_INF_F;
-    if (c.ok) {                         // uniform across the warp
+    if (c.ok && table) {                // uniform across the warp
+      v = table_value(plv, tab_l, a.n_vars, a.bits, c.s, c.e, even_mask,
+                      lane);
+    } else if (c.ok) {
       // variables the pattern can touch: [s / bits, end of [s, e)), or to
       // the last variable when the segment's length is odd
       const int v_lo = c.s / a.bits;
@@ -493,6 +562,9 @@ int popstep_grid(int obj_id, int smem, int* blocks) {
 // (R, K), each parent's best child's (value, child id) in ``out_val``/
 // ``out_id`` (R,); ``live`` (R,) or null skips restarts; the virtual blocks
 // fold in ``n_shards`` runs (fold_shards; 1: one fold over all of them).
+// ``table`` (Rastrigin at <= 8 bits only) reads the terms from the block's
+// table of levels; ``smem`` must then hold it (32 << bits floats past the
+// parent's point and levels).
 // ``keys`` (R, n_vblocks) must hold all ones and ``ctl`` (R, 2) zeros, as
 // the launch before on this stream leaves them.  ``blocks`` is the grid
 // of each restart.
@@ -502,7 +574,7 @@ int popstep_step(const signed char* parent, float* vals, float* out_val,
                  const int* order, const int* ids, int n_rows, int n_vars,
                  int bits, float lo, float scale, int obj_id, const float* c0,
                  const float* c1, int m, float param, int vblock,
-                 int n_vblocks, int n_shards, int sentinel,
+                 int n_vblocks, int n_shards, int sentinel, int table,
                  unsigned long long* keys, int* ctl, int restarts,
                  const bool* live, int blocks, int smem, void* stream) {
   using namespace popstep;
@@ -510,9 +582,12 @@ int popstep_step(const signed char* parent, float* vals, float* out_val,
   if (fn == nullptr || restarts < 1 || n_shards < 1 ||
       n_vblocks % n_shards != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (table && (obj_id != kRastrigin || bits > 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a{parent, starts, ends, ok, masks, order, ids, n_rows, n_vars,
              bits, lo, scale, ObjParams{c0, c1, m, param}, vblock, n_vblocks,
-             n_shards, sentinel, live, vals, keys, ctl, out_val, out_id};
+             n_shards, sentinel, table, live, vals, keys, ctl, out_val,
+             out_id};
   void* args[] = {&a};
   const cudaError_t err = cudaLaunchKernel(
       reinterpret_cast<const void*>(fn), dim3(blocks, restarts),

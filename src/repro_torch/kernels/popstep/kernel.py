@@ -17,8 +17,8 @@ _F = ctypes.c_float
 LIBRARY = Library("popstep", CSRC, ("popstep.cu", "objectives.cuh"), {
     "popstep_grid": (_I, _I, ctypes.POINTER(_I)),
     "popstep_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                     _F, _I, _P, _P, _I, _F, _I, _I, _I, _I, _P, _P, _I, _P,
-                     _I, _I, _P),
+                     _F, _I, _P, _P, _I, _F, _I, _I, _I, _I, _I, _P, _P, _I,
+                     _P, _I, _I, _P),
     "popstep_fold": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
 })
 

@@ -28,6 +28,13 @@ For the remote-sensing MLP the kernel evaluates the parent's hidden
 layer once per thread block and recomputes in each child only the
 hidden units its segment pattern touches (:func:`hidden_unit_masks`);
 :func:`hidden_reuse_values_plain` is that arithmetic in PyTorch.
+
+For Rastrigin's function at <= 8 bits and at least ``TABLE_MIN_VARS``
+variables (:func:`term_table`) each block computes the term of every
+level once and each child looks its terms up (the same bits as the
+cosine, :func:`rastrigin_table_values_plain`); ``table_launches``
+counts those launches, and, on a traced wave, the spans' counter
+``popstep.table_launches``.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.cache import get_cache
 from repro_torch.core.encoding import Encoding, decode_levels, levels_of
 from repro_torch.core.objectives import (OBJECTIVE_IDS, RS_CLASSES, RS_HIDDEN,
@@ -47,6 +55,7 @@ from repro_torch.kernels._plain import _INT_MAX, child_levels, nan_first_rows
 
 launches = 0
 fold_launches = 0
+table_launches = 0
 # the counts are bumped from every thread that launches (the waves of the
 # batched engine run on worker threads)
 _COUNTS = threading.Lock()
@@ -54,6 +63,12 @@ _COUNTS = threading.Lock()
 WARPS = 8                 # warps per thread block, a child each (kWarps)
 MAX_SMEM = 226 * 1024     # an H100 block's 227 KB (opt-in), less static
 _RS_ID = OBJECTIVE_IDS["remote_sensing"]
+_RAST_ID = OBJECTIVE_IDS["rastrigin"]
+# Rastrigin's term table: 2^bits levels, one copy per shared-memory bank;
+# below TABLE_MIN_VARS variables the block's fill costs more cosines than
+# its children save (chip_smoke.py's table probe, n = 9, 64 and 1,000)
+TABLE_MAX_BITS = 8
+TABLE_MIN_VARS = 64
 _RS_W1B1 = RS_IN * RS_HIDDEN + RS_HIDDEN   # the variables of W1 and b1
 _ALL_UNITS = (1 << RS_HIDDEN) - 1
 _MASKS = get_cache("popstep.hidden_masks", maxsize=32)
@@ -229,6 +244,46 @@ def hidden_reuse_values_plain(objective, parent_bits: torch.Tensor,
     return -(y * torch.log_softmax(logits, dim=-1)).sum(-1).mean(-1)
 
 
+def term_table(obj_id: int, n_vars: int, bits: int) -> bool:
+    """Whether a step of the objective with kernel id ``obj_id`` at
+    ``n_vars`` variables of ``bits`` bits reads its terms from a table of
+    the levels (Rastrigin's, whose term is one function of the level for
+    every variable) instead of a cosine a term."""
+    return (obj_id == _RAST_ID and bits <= TABLE_MAX_BITS
+            and n_vars >= TABLE_MIN_VARS)
+
+
+def rastrigin_table_values_plain(parent_bits: torch.Tensor,
+                                 child_ids: torch.Tensor, enc: Encoding,
+                                 valid: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """(K,) Rastrigin values of the children ``child_ids`` by the
+    kernel's table arithmetic: the term of each of the 2^bits levels,
+    once; each child's level of variable k the parent's before its
+    segment's first variable, the parent's XOR the odd segment's tail from
+    the first variable wholly at or past its end, and the closed-form
+    child level only in between; its terms looked up and summed as the
+    objective sums them (+inf where ``valid`` is False)."""
+    dev = parent_bits.device
+    x = decode_levels(torch.arange(1 << enc.bits, device=dev), enc)
+    term = x * x - 10.0 * torch.cos(2 * math.pi * x)
+    ids = child_ids.to(torch.int64).clamp(0, 2 * enc.n_bits - 2)
+    table = table_on("table", enc.n_bits, dev)
+    s, e = table[ids, 0].to(torch.int64), table[ids, 1].to(torch.int64)
+    plv = levels_of(parent_bits, enc)
+    k = torch.arange(enc.n_vars, device=dev)
+    v_lo = (s // enc.bits)[:, None]
+    v_hi = ((e + enc.bits - 1) // enc.bits)[:, None]
+    tail = torch.where((e - s) & 1 == 1, (1 << enc.bits) - 1, 0)[:, None]
+    lv = torch.where(k < v_lo, plv,
+                     torch.where(k >= v_hi, plv ^ tail,
+                                 child_levels(plv, s, e, enc)))
+    vals = 10.0 * enc.n_vars + term[lv].sum(-1)
+    if valid is not None:
+        vals = torch.where(valid.to(torch.bool), vals, torch.inf)
+    return vals
+
+
 def child_values_plain(objective, parent_bits: torch.Tensor,
                        child_ids: torch.Tensor, enc: Encoding,
                        valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -325,13 +380,16 @@ def _check_kernel_form(kernel, enc: Encoding) -> None:
                          f"{shapes} does not fit n_vars={n}")
 
 
-def _smem_bytes(kernel, enc: Encoding) -> int:
+def _smem_bytes(kernel, enc: Encoding, table: bool = False) -> int:
     """Dynamic shared memory of one thread block: the parent's point and
-    levels, one child point per warp and, for the remote-sensing MLP
-    (``RS::smem_floats``), the parent's hidden layer for m samples rounded
-    up to passes of 128, the samples and the labels ((7 + 8) x m), rounded
-    up to 16 bytes."""
-    floats = (2 + WARPS) * enc.n_vars
+    levels, one child point per warp (on the table path the larger of
+    those and the term table, 32 copies of 2^bits levels, in the same
+    area) and, for the remote-sensing MLP (``RS::smem_floats``), the
+    parent's hidden layer for m samples rounded up to passes of 128, the
+    samples and the labels ((7 + 8) x m), rounded up to 16 bytes."""
+    points = WARPS * enc.n_vars
+    floats = 2 * enc.n_vars + (max(points, 32 << enc.bits) if table
+                               else points)
     if kernel.obj_id == _RS_ID:
         m = kernel.consts[0].shape[0]
         layer = RS_HIDDEN * 128 * -(-m // 128)
@@ -355,9 +413,11 @@ class _CudaStep:
     live costs no evaluation and its outputs are not written."""
 
     def __init__(self, lib, enc: Encoding, dev, n_rows: int, args: tuple,
-                 keep: list, restarts: int | None, blocks: int, smem: int):
+                 keep: list, restarts: int | None, blocks: int, smem: int,
+                 table: bool = False):
         self._lib, self._enc, self._dev, self._k = lib, enc, dev, n_rows
         self._args = args        # popstep_step's arguments after out_id
+        self.table = table       # Rastrigin's terms from the level table
         self._keep = keep        # the device arrays behind those pointers
         self._r = restarts       # None: one parent, (N,)
         self._grid = (blocks, smem)
@@ -391,7 +451,7 @@ class _CudaStep:
         return stream
 
     def __call__(self, parent_bits: torch.Tensor, live=None):
-        global launches
+        global launches, table_launches
         stream = self._check(parent_bits, live)
         k, n = self._k, 1 if self._r is None else self._r
         parent = parent_bits.to(torch.int8).contiguous()
@@ -406,6 +466,9 @@ class _CudaStep:
             raise RuntimeError(f"popstep launch failed: CUDA error {err}")
         with _COUNTS:
             launches += 1
+            table_launches += self.table
+        if self.table:
+            spans.count("popstep.table_launches", 1)
         vals = buf[n * k: n * (k + 1)]
         ids = buf[n * (k + 1):].view(torch.int32)
         if self._r is None:
@@ -419,8 +482,10 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb, n_shards=1,
                   restarts=None, *, reuse=True):
     """Check the inputs and build every device array that does not depend
     on the parent; returns the bound step (:class:`_CudaStep`).
-    ``reuse=False`` marks every hidden unit of the remote-sensing MLP, so
-    each child is evaluated in full (the same values, bitwise).  With
+    ``reuse=False`` evaluates each child in full, with the same values,
+    bitwise: every hidden unit of the remote-sensing MLP marked, and
+    Rastrigin's cosine a term where :func:`term_table` would take the
+    table.  With
     ``restarts=R`` each parent has its own keys and counters, and each
     gets ``1/R`` of the persistent grid."""
     kernel = _kernel_of(objective)
@@ -432,7 +497,8 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb, n_shards=1,
         raise ValueError(f"the popstep kernel takes 1..32 bits per "
                          f"variable, got {enc.bits}")
     _check_kernel_form(kernel, enc)
-    smem = _smem_bytes(kernel, enc)
+    use_table = reuse and term_table(kernel.obj_id, enc.n_vars, enc.bits)
+    smem = _smem_bytes(kernel, enc, use_table)
     if smem > MAX_SMEM:
         raise ValueError(
             f"n_vars={enc.n_vars}"
@@ -484,8 +550,9 @@ def _prepare_cuda(objective, child_ids, enc, valid, n_vb, n_shards=1,
     args = (*p[:6], k, enc.n_vars, enc.bits, lo, scale, kernel.obj_id,
             p[6], p[7], 0 if consts[0] is None else consts[0].shape[0],
             float(kernel.param), k // n_vb, n_vb, n_shards, enc.population,
-            p[8], p[9])
-    return _CudaStep(lib, enc, dev, k, args, keep, restarts, grid, smem)
+            int(use_table), p[8], p[9])
+    return _CudaStep(lib, enc, dev, k, args, keep, restarts, grid, smem,
+                     use_table)
 
 
 def _resident_blocks(lib, obj_id: int, smem: int, dev) -> int:
@@ -622,7 +689,8 @@ def child_values(objective, parent_bits: torch.Tensor,
     """(K,) float32 value of every child in ``child_ids`` (+inf where
     ``valid`` is False): on CUDA ids the buffer one kernel launch fills
     (counted in ``launches``; ``reuse=False`` recomputes every hidden unit
-    of the remote-sensing MLP, which must give the same bits); on CPU ids
+    of the remote-sensing MLP and takes Rastrigin's cosine a term instead
+    of its level table, which must give the same bits); on CPU ids
     :func:`child_values_plain`."""
     if not child_ids.is_cuda:
         return child_values_plain(objective, parent_bits, child_ids, enc,

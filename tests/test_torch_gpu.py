@@ -264,13 +264,18 @@ def test_schedule_steps_match_plain_version(cuda, bits):
                               rtol=TOL, atol=atol)
 
 
-@pytest.mark.parametrize("name,bits", [("remote_sensing", 4)]
-                         + [("rastrigin", b) for b in (8, 10, 12, 14, 16)])
-def test_every_child_value_matches_plain_version(cuda, name, bits):
+@pytest.mark.parametrize(
+    "name,bits,n", [pytest.param("remote_sensing", 4, None,
+                                 id="remote_sensing-4")]
+    + [pytest.param("rastrigin", b, 9, id=f"rastrigin-{b}")
+       for b in (8, 10, 12, 14, 16)]
+    + [pytest.param("rastrigin", 8, 1000, id="rastrigin-8-n1000")])
+def test_every_child_value_matches_plain_version(cuda, name, bits, n):
     """The kernel's (K,) value buffer, child by child, against the plain
-    version (masked rows +inf in both)."""
+    version (masked rows +inf in both); rastrigin n=1,000 at 8 bits reads
+    its terms from the level table."""
     obj = (objectives.get(name) if name == "remote_sensing"
-           else objectives.get(name, n=9))
+           else objectives.get(name, n=n))
     enc = obj.encoding.with_bits(bits)
     parent, ids, valid, block = _engine_step(cuda, obj, enc, bits)
     step = ops.prepare_step_ids(obj, ids, enc, valid=valid,
@@ -292,6 +297,35 @@ def test_reused_hidden_units_are_bitwise_a_full_evaluation(cuda):
     full = ops.child_values(obj, parent, ids, obj.encoding, valid,
                             reuse=False)
     assert torch.equal(reused.view(torch.int32), full.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1000, 64])
+def test_term_table_is_bitwise_the_cosine_path(cuda, n):
+    """Rastrigin's terms looked up in the block's table of levels give the
+    same bits as a precise cosf a term (``reuse=False``), in a one-parent
+    launch and in a launch of 4 restarts with one not live."""
+    obj = objectives.get("rastrigin", n=n)
+    enc = obj.encoding
+    parent, ids, valid, block = _engine_step(cuda, obj, enc, n)
+    before = ops.table_launches
+    table = ops.child_values(obj, parent, ids, enc, valid)
+    assert ops.table_launches == before + 1
+    cosine = ops.child_values(obj, parent, ids, enc, valid, reuse=False)
+    assert ops.table_launches == before + 1
+    assert torch.equal(table.view(torch.int32), cosine.view(torch.int32))
+
+    parents = torch.as_tensor(np.random.default_rng(n + 1).integers(
+        0, 2, (4, enc.n_bits)).astype(np.int8), device=cuda)
+    live = torch.tensor([True, True, False, True], device=cuda)
+    steps = [ops._prepare_cuda(obj, ids, enc, valid, ids.shape[0] // block,
+                               restarts=4, reuse=reuse)
+             for reuse in (True, False)]
+    assert [step.table for step in steps] == [True, False]
+    (tv, ti), (cv, ci) = (step(parents, live) for step in steps)
+    assert torch.equal(steps[0].values[live].view(torch.int32),
+                       steps[1].values[live].view(torch.int32))
+    assert torch.equal(tv[live].view(torch.int32), cv[live].view(torch.int32))
+    assert torch.equal(ti[live], ci[live])
 
 
 @pytest.mark.parametrize("name", ["remote_sensing", "rastrigin"])
