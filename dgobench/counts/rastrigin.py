@@ -13,6 +13,10 @@ from __future__ import annotations
 
 from dgobench.counts.peaks import step_rows
 
+# the device kernels a step of this objective launches, as the trace
+# names them (a name matches every record that contains it)
+KERNELS = ("popstep_kernel",)
+
 OPS_PER_TERM = 6
 
 

@@ -16,15 +16,68 @@ import dataclasses
 
 import numpy as np
 
+from dgobench.reference import Answer
+
 DRAIN_S = 120.0      # how long answers due in the window are waited for
 
 
 @dataclasses.dataclass
 class Sent:
-    """One request as sent: its start levels and the program's handle."""
+    """One request as sent: its start levels and the program's handle,
+    until :func:`settle` takes what it returned to the host and lets the
+    handle go."""
 
     levels0: np.ndarray
-    handle: object
+    handle: object | None
+    submitted_at: float
+    completed_at: float | None = None     # None: never answered
+    error: BaseException | None = None
+    answer: Answer | None = None
+    wave_slot: int = -1
+
+    @property
+    def done(self) -> bool:
+        return self.completed_at is not None
+
+
+def drop_rows(batch: list) -> None:
+    """Let go of the wave's rows that each returned answer of ``batch``
+    holds on the card (``extras["bits"]``, a view of the wave's bit
+    strings, which the check does not read), so that the answers kept
+    until the window closes hold no wave-sized memory.  No call into
+    torch: on a host-paced cell every such call contends with the
+    program's threads for the interpreter."""
+    for s in batch:
+        h = s.handle
+        if h.done() and h.error is None:
+            h.result().extras.pop("bits", None)
+
+
+def settle(batch: list) -> None:
+    """Once the window has closed: take the answers of the requests of
+    ``batch`` that returned to the host, each field of all of them in one
+    copy, and let go of every handle of ``batch``, and with it the device
+    memory its result holds.  A request that has not returned stays
+    unanswered."""
+    import torch
+
+    taken = []
+    for s in batch:
+        h, s.handle = s.handle, None
+        if h is None or not h.done():
+            continue
+        s.completed_at, s.error = h.completed_at, h.error
+        if h.error is None:
+            taken.append((s, h.result()))
+    if not taken:
+        return
+    xs = torch.stack([r.best_x for _, r in taken]).cpu().numpy()
+    fs = [r.best_f for _, r in taken]
+    if isinstance(fs[0], torch.Tensor):
+        fs = torch.stack(fs).cpu().numpy()
+    for (s, r), x, f in zip(taken, xs, fs):
+        s.answer = Answer(s.levels0, r.trace, r.iterations, x, f)
+        s.wave_slot = r.extras["wave_slot"]
 
 
 def build_problem(config: dict, arrays: dict):
@@ -50,3 +103,14 @@ def counters(sched) -> dict:
     m = sched.metrics_
     return {"waves": m.waves, "slots": m.slots,
             "padded_slots": m.padded_slots, "busy_s": m.busy_s}
+
+
+def segments(device) -> int:
+    """The CUDA caching allocator's segments allocated so far (each a
+    ``cudaMalloc``); 0 off the card."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 0
+    return int(torch.cuda.memory_stats(device).get(
+        "segment.all.allocated", 0))

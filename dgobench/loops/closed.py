@@ -9,14 +9,28 @@ waves run before the window, from start points of their own).  With
 ``clients`` a multiple of ``wave_size`` every wave leaves full.  Every
 request carries the configuration's fixed budget, so the seed changes no
 count, no size and no arrival: only the start points.
+
+Two threads, as ``serve --dgo`` has them: the calling thread runs the
+scheduler's own serving loop (``drain``), which submits a wave whenever
+one in flight retires and otherwise waits on the scheduler's condition;
+the callers are one thread that blocks on the oldest wave's last
+request, sends that wave's callers' next requests, lets go of the
+wave's rows its answers hold (:func:`~dgobench.driver.drop_rows`, no
+call into torch) and blocks again.  Neither polls, so the harness takes
+the interpreter from the program's threads (the wave threads and the
+dispatch worker, which pace a host-bound cell) only to send.  The
+answers are taken to the host once the window has closed
+(:func:`~dgobench.driver.settle`).  ``wakeups`` counts the callers'
+wake-ups, at most one a wave.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 
-from dgobench.driver import DRAIN_S, Sent
+from dgobench.driver import DRAIN_S, Sent, drop_rows
 from dgobench.traffic import Starts
 
 
@@ -51,13 +65,15 @@ class Loop:
         self.sched = PipelinedScheduler(
             wave_size=mix.wave_size, max_in_flight=mix.max_in_flight,
             device=device)
+        self.wakeups = 0
 
     def _send(self, starts: Starts) -> Sent:
         from repro_torch.core.solver import SolveRequest
 
         levels, x0 = starts.next()
-        return Sent(levels, self.sched.submit(SolveRequest(
-            self.problem, x0=x0, max_iters=self.budget)))
+        handle = self.sched.submit(SolveRequest(
+            self.problem, x0=x0, max_iters=self.budget))
+        return Sent(levels, handle, handle.submitted_at)
 
     def warm_up(self, starts: Starts) -> list[Sent]:
         """``warmup_waves`` full waves, as the window sends them."""
@@ -69,11 +85,7 @@ class Loop:
         """Keep every client's request outstanding, sending the next one
         when its result returns, until the clock passes ``until`` (or
         ``total`` requests were sent); then wait up to ``drain_s`` for
-        the answers still out.  Returns every request sent, in order.
-
-        The clients block on their results: between waves this thread
-        sleeps on the oldest wave's last request, so it takes the
-        interpreter from the program's threads only to send."""
+        the answers still out.  Returns every request sent, in order."""
         sent: list[Sent] = []
         out: collections.deque[Sent] = collections.deque()
 
@@ -90,40 +102,63 @@ class Loop:
         for _ in range(self.mix.clients):
             if more():
                 send()
-        deadline = None
+        deadline = None if until is None else until + drain_s
+        failure: list[BaseException] = []
+
+        def callers() -> None:
+            try:
+                self._callers(out, more, send, deadline, drain_s)
+            except BaseException as err:    # noqa: BLE001 — re-raised
+                failure.append(err)         # on the calling thread
+
+        thread = threading.Thread(target=callers, name="dgobench-callers",
+                                  daemon=True)
+        thread.start()
+        try:
+            while thread.is_alive():
+                left = (None if deadline is None
+                        else deadline - time.perf_counter())
+                if left is not None and left <= 0:
+                    break
+                try:
+                    self.sched.drain(timeout_s=left)
+                except TimeoutError:
+                    break
+                # the queue ran empty between a wave's return and its
+                # callers' next requests: serve again once they are in
+                thread.join(0.01)
+        finally:
+            thread.join(drain_s)
+        if failure:
+            raise failure[0]
+        return sent
+
+    def _callers(self, out, more, send, deadline, drain_s) -> None:
+        """The callers' thread: wait for the oldest wave, send its
+        callers' next requests together (or none, once the window has
+        closed, so waves leave full up to the close), let go of its
+        rows."""
         while out:
-            # a wave goes out whenever one in flight has returned
-            while (self.sched.in_flight < self.mix.max_in_flight
-                   and len(self.sched.queue)):
-                if not self.sched.pump():
-                    time.sleep(0.0002)
-            if deadline is None and not more():
-                deadline = time.perf_counter() + drain_s
             # waves return in the order they were sent and leave full, so
-            # the oldest wave is the oldest ``wave_size`` requests out
+            # the oldest wave is the oldest ``wave_size`` requests out,
+            # and its last request is answered last
             last = out[min(self.mix.wave_size, len(out)) - 1].handle
             wait = drain_s if deadline is None else max(
                 deadline - time.perf_counter(), 0.0)
             try:
                 last.result(timeout=wait)
             except TimeoutError:
-                if deadline is not None and time.perf_counter() >= deadline:
-                    break
+                return
             except Exception:     # noqa: BLE001 — a failed request is
                 pass              # counted from its handle afterwards
-            # the scheduler retires a wave just after its last answer
-            retire = time.perf_counter() + 1.0
-            while (self.sched.in_flight >= self.mix.max_in_flight
-                   and time.perf_counter() < retire):
-                time.sleep(0.0002)
-            # a wave's clients send again together, or not at all, so
-            # waves leave full up to the window's close
+            self.wakeups += 1
             again = more()
+            returned = []
             while out and out[0].handle.done():
-                out.popleft()
+                returned.append(out.popleft())
                 if again:
                     send()
-        return sent
+            drop_rows(returned)
 
     def close(self) -> None:
         self.sched.close(timeout_s=DRAIN_S)

@@ -1,0 +1,5 @@
+"""``engine_host_us.closed``'s reading, in a cell whose rate is
+``solves_per_s.host_paced`` (the host paces its waves)."""
+from dgobench.spec import HERE, load_module
+
+read = load_module(HERE / "metrics" / "engine_host_us.closed.py").read

@@ -1,0 +1,5 @@
+"""``kernels_per_step.closed``'s reading, in a cell whose rate is
+``solves_per_s.host_paced`` (the host paces its waves)."""
+from dgobench.spec import HERE, load_module
+
+read = load_module(HERE / "metrics" / "kernels_per_step.closed.py").read

@@ -13,9 +13,9 @@ is ``--seconds`` of the loop (with ``--trace 1`` at most
 close are waited for.  Then, with the program's state freed, the plain
 reference judges the answers (``reference.py``), and the last line of
 standard output is the result: ``correct``, ``attempted``, ``failed``,
-``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
-per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and
-``check``, each number compared beside its limit, also the last lines
+``metrics`` (the cell's end-to-end metrics, each the quantity its name
+starts with, or with ``--trace 1`` its per-layer ones), ``device``,
+with ``--trace 1`` ``breakdown``, and ``check``, each number compared beside its limit, also the last lines
 of standard error.  The run exits non-zero, printing no result, without
 a CUDA card, without the program's sources beside the benchmark, or if
 the JAX package or JAX was loaded.
@@ -67,33 +67,30 @@ def card_line() -> str:
         return "nvidia-smi not readable"
 
 
+def quantity(name: str) -> str:
+    """What an end-to-end metric measures: its name up to the first dot.
+    ``solves_per_s.host_paced`` is ``solves_per_s`` under a bound of its
+    own, for the cells that list it."""
+    return name.split(".")[0]
+
+
 def answers_of(sent) -> tuple[list[Answer], list]:
-    """(answers, handles) of the requests that returned a result."""
-    out, handles = [], []
-    for s in sent:
-        h = s.handle
-        if not h.done() or h.error is not None:
-            continue
-        r = h.result()
-        out.append(Answer(
-            s.levels0, np.asarray(r.trace, np.float64), int(r.iterations),
-            r.best_x.detach().cpu().numpy().astype(np.float32),
-            float(r.best_f)))
-        handles.append(h)
-    return out, handles
+    """(answers, requests) of the requests that returned a result, the
+    answers in the types the check reads."""
+    done = [s for s in sent if s.answer is not None]
+    return [Answer(a.levels0, np.asarray(a.trace, np.float64),
+                   int(a.iterations), np.asarray(a.best_x, np.float32),
+                   float(a.best_f)) for a in (s.answer for s in done)], done
 
 
-def group_waves(handles, answers) -> list[tuple[int, int, int]]:
+def group_waves(done) -> list[tuple[int, int, int]]:
     """(slots, longest slot's steps, all slots' steps) of each wave:
-    a wave's handles complete one after another, slot 0 first."""
-    order = sorted(range(len(handles)),
-                   key=lambda i: handles[i].completed_at)
+    a wave's requests complete one after another, slot 0 first."""
     waves = []
-    for i in order:
-        slot = handles[i].result().extras["wave_slot"]
-        if slot == 0 or not waves:
+    for s in sorted(done, key=lambda s: s.completed_at):
+        if s.wave_slot == 0 or not waves:
             waves.append([0, 0, 0])
-        it = answers[i].iterations
+        it = s.answer.iterations
         waves[-1][0] += 1
         waves[-1][1] = max(waves[-1][1], it)
         waves[-1][2] += it
@@ -112,6 +109,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     cfg, mix = cell.config, cell.loop.parse(cell.traffic)
     lat = Lattice.of(cfg)
     budget = int(cfg["max_iters"])
+    kernels = tuple(cell.count.KERNELS)
+    wanted = " or ".join(kernels)
     dev = torch.device(device)
     arrays = cell.reference.state(cfg)
     if dev.type == "cuda":
@@ -133,6 +132,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             seconds = min(seconds, TRACE_SECONDS)
         for attempt in (1, 2):
             before = driver.counters(loop.sched)
+            segs, wakes = driver.segments(dev), loop.wakeups
             if trace:
                 with tracing.session() as prof:
                     t0 = time.perf_counter()
@@ -143,35 +143,38 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                 t0 = time.perf_counter()
                 sent = loop.run(starts, until=t0 + seconds)
             after = driver.counters(loop.sched)
+            segs = driver.segments(dev) - segs
+            wakes = loop.wakeups - wakes
             t_end = t0 + seconds
             if not trace:
                 break
-            summary = tracing.summarize(prof)
-            if summary["popstep_launches"] or dev.type != "cuda":
+            summary = tracing.summarize(prof, kernels)
+            if tracing.recorded(summary, kernels) or dev.type != "cuda":
                 break
-            log(f"[trace] profiler session {attempt} recorded no "
-                f"{tracing.POPSTEP}"
+            log(f"[trace] profiler session {attempt} recorded no {wanted}"
                 + ("; tracing the window again" if attempt == 1 else ""))
             if attempt == 2:
-                raise RuntimeError("the profiler recorded no popstep_kernel "
-                                   "in two sessions")
+                raise RuntimeError(f"the profiler recorded no {wanted} in "
+                                   f"two sessions")
     finally:
         loop.close()
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    answers, handles = answers_of(sent)
-    in_window = [s.handle.submitted_at < t_end for s in sent]
+    driver.settle(sent)
+    answers, done = answers_of(sent)
+    in_window = [s.submitted_at < t_end for s in sent]
     attempted = sum(in_window)
     failed = sum(1 for s, w in zip(sent, in_window)
-                 if w and (not s.handle.done() or s.handle.error is not None))
-    done_in = [i for i, h in enumerate(handles) if h.completed_at <= t_end]
+                 if w and (not s.done or s.error is not None))
+    done_in = [i for i, s in enumerate(done) if s.completed_at <= t_end]
     stopped = [i for i in done_in if answers[i].iterations < budget]
-    waves = group_waves(handles, answers)
-    latencies = [handles[i].completed_at - handles[i].submitted_at
+    waves = group_waves(done)
+    latencies = [done[i].completed_at - done[i].submitted_at
                  for i in done_in]
     log(f"[window] {len(sent)} sent, {attempted} in the window, "
         f"{len(done_in)} answered in it, {failed} failed; {len(waves)} "
-        f"waves; stopped before the budget of {budget}: {len(stopped)}")
+        f"waves; stopped before the budget of {budget}: {len(stopped)}; "
+        f"{wakes} callers' wake-ups, {segs} allocator segments added")
     del loop
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -189,7 +192,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             f"{summary['popstep_launches']} popstep launches over "
             f"{layers.steps(rec)} steps")
     else:
-        vals = {"setup_s": setup_s, "solves_per_s": len(done_in) / seconds}
+        taken = {"setup_s": setup_s, "solves_per_s": len(done_in) / seconds}
+        vals = {m["name"]: taken[quantity(m["name"])]
+                for m in cell.end_to_end}
     result["metrics"] = {k: {"value": v, "unit": units[k]}
                          for k, v in vals.items()
                          if k in units and v is not None}

@@ -1,6 +1,8 @@
 """The generator: the seed changes the start points and nothing else;
 the rates and tails are taken over every request of a window; the
 remote-sensing count."""
+import time
+
 import numpy as np
 import pytest
 
@@ -15,7 +17,8 @@ def test_two_seeds_differ_only_in_their_starts(cell):
     lat = Lattice.of(c.config)
     mixes = [c.loop.parse(c.traffic) for _ in range(2)]
     assert mixes[0] == mixes[1] and mixes[0].wave_size >= 32
-    assert mixes[0].clients == 3 * mixes[0].wave_size
+    mix = mixes[0]
+    assert mix.clients == (mix.max_in_flight + 1) * mix.wave_size
     a, b = Starts(lat, 5, 1), Starts(lat, 2**31 + 77, 1)
     for _ in range(600):                 # past one block of draws
         (la, xa), (lb, xb) = a.next(), b.next()
@@ -50,14 +53,51 @@ def test_rates_are_over_every_wave():
     assert fill(empty) is None and wave(empty) is None
 
 
-@pytest.mark.parametrize("cell", ["rs680.closed", "r1000.closed"])
-def test_every_wave_leaves_full(cell):
+@pytest.mark.parametrize("cell, in_flight", [
+    pytest.param("rs680.closed", None, id="rs680.closed"),
+    pytest.param("r1000.closed", None, id="r1000.closed"),
+    pytest.param("rs680.closed", 1, id="rs680.closed-one_in_flight"),
+    pytest.param("r1000.closed", 1, id="r1000.closed-one_in_flight"),
+])
+def test_every_wave_leaves_full(cell, in_flight):
     c = load_cell(cell)
     mix = c.loop.parse(c.traffic)
     assert mix.clients % mix.wave_size == 0
     assert mix.clients // mix.wave_size == mix.max_in_flight + 1
     # the warm-up puts a wave on every stream the window uses
     assert mix.warmup_waves == mix.max_in_flight
+    # driven on the CPU at a small size, at the cell's own depth and at
+    # the other: a wave's clients send again together, so every wave
+    # leaves full, and the callers' thread blocks between waves, waking
+    # at most once a wave (a loop that polled the scheduler on 0.2-ms
+    # sleeps woke 100-290 times a wave on the card)
+    from dgobench import driver
+    from dgobench.test_dgobench_check import small
+
+    s = small(cell, in_flight)
+    m = s.loop.parse(s.traffic)
+    assert m.max_in_flight == (in_flight or mix.max_in_flight)
+    lat = Lattice.of(s.config)
+    loop = s.loop.Loop(driver.build_problem(s.config, s.reference.state(
+        s.config)), m, int(s.config["max_iters"]), "cpu")
+    try:
+        sent = loop.run(Starts(lat, 3, 0), total=3 * m.clients)
+        sent += loop.run(Starts(lat, 3, 1), until=time.perf_counter() + 0.5)
+    finally:
+        loop.close()
+    # in the window each returned answer let go of its wave's rows;
+    # once it has closed, every answer is settled: on the host, its
+    # handle let go
+    assert all("bits" not in x.handle.result().extras for x in sent)
+    driver.settle(sent)
+    assert all(x.done and x.error is None and x.answer is not None
+               and x.handle is None for x in sent)
+    counted = driver.counters(loop.sched)
+    waves = len(sent) // m.wave_size
+    assert len(sent) == waves * m.wave_size >= 3 * m.clients
+    assert counted["padded_slots"] == 0
+    assert counted["slots"] == counted["waves"] * m.wave_size == len(sent)
+    assert 0 < loop.wakeups <= waves
 
 
 def test_remote_sensing_count_is_the_needed_work():

@@ -9,6 +9,10 @@ launches and the seconds in which one ran, the device operations that
 took most time, and the longest idle gaps, each put under the host
 record that overlaps it most (the shortest of those within a tenth of
 that overlap, so a runtime call wins over the operator that made it).
+The launches of the kernels a cell's objective names
+(``counts/<problem>.py`` ``KERNELS``) are counted too, each by the
+device records whose names contain it: they tell a session that lost
+its records from one that recorded the cell's work.
 """
 from __future__ import annotations
 
@@ -50,9 +54,10 @@ def _is_device(ev) -> bool:
     return str(ev.device_type()).endswith("CUDA")
 
 
-def summarize(prof) -> dict:
+def summarize(prof, named: tuple[str, ...]) -> dict:
     """The traced window's numbers (module docstring): zero counts and
-    seconds where the profiler recorded nothing on the card."""
+    seconds where the profiler recorded nothing on the card;
+    ``launches_of`` holds the launches of each of ``named``."""
     events = prof.profiler.kineto_results.events()
     win = [e for e in events if e.name() == WINDOW and not _is_device(e)]
     if not win:
@@ -92,12 +97,21 @@ def summarize(prof) -> dict:
         "kernels": kernels,
         "popstep_launches": int(pop.sum()),
         "popstep_s": float((pe - ps).sum()) / 1e9,
+        "launches_of": {k: sum(1 for n in dev_name if k in n)
+                        for k in named},
         "device_ops": [[n, t / 1e9] for n, t in sorted(
             per_op.items(), key=lambda kv: -kv[1])[:TOP]],
         "idle_gaps": _idle_gaps(us, ue, w0, w1, cpu_name,
                                 np.asarray(cpu_s, np.int64),
                                 np.asarray(cpu_e, np.int64)),
     }
+
+
+def recorded(summary: dict, kernels: tuple[str, ...]) -> bool:
+    """Whether a traced session recorded the cell's work: a launch of
+    one of the kernels its objective names.  The profiler loses a whole
+    session's records now and then; such a session is traced again."""
+    return any(summary["launches_of"].get(k, 0) for k in kernels)
 
 
 def _idle_gaps(us, ue, w0, w1, names, cs, ce) -> list:
